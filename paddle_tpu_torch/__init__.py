@@ -1,0 +1,21 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
+
+A second package beside ``paddle_tpu`` (the JAX reference). Module paths
+mirror ``paddle_tpu/`` so each port module's counterpart is found by
+name. The port imports ``torch``, ``numpy`` and the standard library
+only — never ``jax`` and nothing under ``paddle_tpu``.
+
+Every entry point runs on the CUDA card unless the caller passes
+``device="cpu"``; with no card and no explicit CPU request it raises
+(``device.resolve_device``). Kernels that ``paddle_tpu`` wrote in Pallas
+for the TPU are hand-written CUDA C++ for ``sm_90a`` here
+(``kernels/csrc``), built by ``nvcc`` at first use; on CPU tensors each
+kernel wrapper runs its plain PyTorch version instead.
+
+Covered today (the serving slice): GPT (``models.gpt``), greedy
+``generate``, slot and int8 slot KV caches, the continuous-batching
+engine and its HTTP server.
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,269 @@
+"""GPT decoder family (port of paddle_tpu/models/gpt.py), inference path.
+
+Parameter names and layouts match paddle_tpu's, so weights carry across by
+name with no transpose: Linear weights stay ``[in, out]`` and apply as
+``x @ W + b``; the ``[3H]`` qkv output is laid out ``[q(H); k(H); v(H)]``;
+the LM head is tied to the word embedding.
+
+Ported: the cached forward (prefill and per-row decode, the serving path)
+and the plain no-cache forward. Not yet: ``scan_layers``, ``use_moe``,
+``recompute``, ``fused_loss_chunk``, the pipeline class and sequence
+parallelism (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..nn import functional as F
+from .generation import new_kv_caches
+
+__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
+           "gpt_125m", "gpt_1p3b"]
+
+
+@dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    max_seq_len: int = 1024
+    ffn_mult: int = 4
+    dropout: float = 0.0
+    tie_embeddings: bool = True
+    use_moe: bool = False
+    initializer_range: float = 0.02
+    recompute: bool = False
+    scan_layers: bool = False
+    fused_loss_chunk: int = 0
+
+
+def gpt_tiny(**kw):
+    return GPTConfig(vocab_size=256, hidden_size=64, num_layers=4,
+                     num_heads=4, max_seq_len=128, **kw)
+
+
+def gpt_125m(**kw):
+    return GPTConfig(hidden_size=768, num_layers=12, num_heads=12, **kw)
+
+
+def gpt_1p3b(**kw):
+    return GPTConfig(hidden_size=2048, num_layers=24, num_heads=16,
+                     max_seq_len=2048, **kw)
+
+
+def _check_supported(cfg: GPTConfig):
+    for name in ("scan_layers", "use_moe", "recompute", "fused_loss_chunk"):
+        if getattr(cfg, name):
+            raise NotImplementedError(
+                f"GPTConfig.{name} is not ported yet — see ROADMAP.md")
+
+
+class Linear(nn.Module):
+    """Paddle-layout linear: weight ``[in, out]``, ``y = x @ W + b``."""
+
+    def __init__(self, in_features, out_features, bias=True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_features, out_features))
+        self.bias = (nn.Parameter(torch.zeros(out_features))
+                     if bias else None)
+
+    def forward(self, x):
+        y = x @ self.weight
+        return y if self.bias is None else y + self.bias
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, hidden):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(hidden))
+        self.bias = nn.Parameter(torch.zeros(hidden))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.weight, self.bias)
+
+
+class Embedding(nn.Module):
+    def __init__(self, num, dim):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num, dim))
+
+    def forward(self, ids):
+        return torch.nn.functional.embedding(ids, self.weight)
+
+
+class GPTAttention(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        h, nh = cfg.hidden_size, cfg.num_heads
+        if h % nh:
+            raise ValueError("hidden_size % num_heads != 0")
+        self.num_heads = nh
+        self.head_dim = h // nh
+        self.qkv = Linear(h, 3 * h)
+        self.out_proj = Linear(h, h)
+        self.dropout = nn.Dropout(cfg.dropout)
+
+    def _qkv(self, x):
+        B, S, _ = x.shape
+        qkv = self.qkv(x)                           # [B, S, 3H]
+        H = qkv.shape[-1] // 3
+        shape = (B, S, self.num_heads, self.head_dim)
+        return (qkv[..., :H].reshape(shape), qkv[..., H:2 * H].reshape(shape),
+                qkv[..., 2 * H:].reshape(shape))
+
+    def forward(self, x, cache=None, pos=None):
+        B, S, H = x.shape
+        q, k, v = self._qkv(x)
+        if cache is not None:
+            ctx, kc, vc = F.cached_attention(q, k, v, cache[0], cache[1], pos)
+            return self.dropout(self.out_proj(ctx.reshape(B, S, H))), (kc, vc)
+        ctx = F.causal_attention(q, k, v)
+        return self.dropout(self.out_proj(ctx.reshape(B, S, H)))
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        h = cfg.hidden_size
+        self.fc_in = Linear(h, cfg.ffn_mult * h)
+        self.fc_out = Linear(cfg.ffn_mult * h, h)
+        self.dropout = nn.Dropout(cfg.dropout)
+
+    def forward(self, x):
+        return self.dropout(self.fc_out(F.gelu(self.fc_in(x))))
+
+
+class GPTBlock(nn.Module):
+    """Pre-LN transformer block."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.ln_1 = LayerNorm(cfg.hidden_size)
+        self.attn = GPTAttention(cfg)
+        self.ln_2 = LayerNorm(cfg.hidden_size)
+        self.mlp = GPTMLP(cfg)
+
+    def forward(self, x, cache=None, pos=None):
+        if cache is not None:
+            att, cache = self.attn(self.ln_1(x), cache, pos)
+            x = x + att
+            return x + self.mlp(self.ln_2(x)), cache
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))
+
+
+class GPTEmbeddings(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = Embedding(cfg.max_seq_len,
+                                             cfg.hidden_size)
+        self.dropout = nn.Dropout(cfg.dropout)
+
+    def forward(self, ids, pos=None):
+        S = ids.shape[-1]
+        max_len = self.position_embeddings.weight.shape[0]
+        if S > max_len:
+            raise ValueError(
+                f"sequence length {S} exceeds max_seq_len {max_len}")
+        positions = torch.arange(S, device=ids.device)
+        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+            # per-row offsets [B] (continuous-batching slots) -> [B, S]
+            positions = positions[None, :] + pos.to(torch.int64)[:, None]
+        elif pos is not None:
+            positions = positions + int(pos)
+        # an out-of-range position clamps, as the TPU gather does
+        positions = positions.clamp(0, max_len - 1)
+        x = self.word_embeddings(ids) + self.position_embeddings(positions)
+        return self.dropout(x)
+
+
+class GPTModel(nn.Module):
+    """Decoder stack without head."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.embeddings = GPTEmbeddings(cfg)
+        self.blocks = []
+        for i in range(cfg.num_layers):
+            blk = GPTBlock(cfg)
+            self.add_module(f"block_{i}", blk)
+            self.blocks.append(blk)
+        self.ln_f = LayerNorm(cfg.hidden_size)
+
+    def forward(self, ids, caches=None, pos=None):
+        if caches is not None:
+            x = self.embeddings(ids, pos)
+            new_caches = []
+            for blk, c in zip(self.blocks, caches):
+                x, c = blk(x, c, pos)
+                new_caches.append(c)
+            return self.ln_f(x), new_caches
+        x = self.embeddings(ids)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.ln_f(x)
+
+
+class GPTForCausalLM(nn.Module):
+    """GPT with the LM head tied to the word embedding (or an untied
+    ``lm_head`` when ``cfg.tie_embeddings`` is False).
+
+    ``device``: the card when omitted (raises without one); pass
+    ``device="cpu"`` for the CPU. Weights are drawn from ``N(0,
+    initializer_range)`` with a CPU ``torch.Generator`` seeded by ``seed``
+    and then moved, so one seed gives the same weights on every device.
+    The model is built in eval mode.
+    """
+
+    def __init__(self, cfg: GPTConfig, device=None, seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.gpt = GPTModel(cfg)
+        self.lm_head = (None if cfg.tie_embeddings else
+                        Linear(cfg.hidden_size, cfg.vocab_size, bias=False))
+        gen = torch.Generator().manual_seed(int(seed))
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if name.endswith(".weight") and p.ndim == 2:
+                    p.normal_(0.0, cfg.initializer_range, generator=gen)
+        self.to(dev)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.gpt.ln_f.weight.device
+
+    def forward(self, ids, caches=None, pos=None):
+        """``forward(ids)`` -> logits [B, S, V] (no-cache);
+        ``forward(ids, caches, pos)`` -> (logits, caches), the caches
+        written in place (see ``cached_attention``)."""
+        if caches is not None:
+            x, caches = self.gpt(ids, caches, pos)
+            return self._logits(x), caches
+        return self._logits(self.gpt(ids))
+
+    def _logits(self, x):
+        if self.lm_head is None:
+            return x @ self.gpt.embeddings.word_embeddings.weight.t()
+        return self.lm_head(x)
+
+    def new_cache(self, batch_size: int, max_len: int, dtype="bfloat16"):
+        """Per-layer (k, v) caches [B, max_len, nh, hd] on the model's
+        device (dtype "int8" -> the quantised dict form)."""
+        cfg = self.cfg
+        return new_kv_caches(cfg.num_layers, batch_size, max_len,
+                             cfg.num_heads, cfg.hidden_size // cfg.num_heads,
+                             dtype, self.device)
+
+    def generate(self, input_ids, max_new_tokens=32, **kw):
+        from .generation import generate
+        return generate(self, input_ids, max_new_tokens, **kw)

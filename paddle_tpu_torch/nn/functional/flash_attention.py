@@ -1,0 +1,207 @@
+"""Attention functionals, cache half: slot KV caches and ``cached_attention``.
+
+Port of the serving half of paddle_tpu/nn/functional/flash_attention.py.
+Layout as there: activations ``[B, S, H, D]``, caches ``[B, L, nkv, hd]``
+tensors (f32/bf16) or the int8 dict form ``{"data": int8 [B, L, nkv, hd],
+"scale": f32 [B, L, nkv]}`` from ``quantized_kv_cache``.
+
+Unlike the JAX functions, which return new caches, every function here
+writes the caches IN PLACE and returns the same objects.
+
+The S=1 per-row slot-decode step (the engine's decode tick) goes through
+the hand-written kernels: ``mega_decode_step`` for tensor caches,
+``fused_slot_write`` inside ``_fused_decode_attention`` for int8 caches.
+These are the paths paddle_tpu takes with ``PADDLE_TPU_MEGA_DECODE`` and
+``PADDLE_TPU_FUSED_CACHE_WRITE`` on; the port has no unfused decode chain
+to fall back on. Prefill (scalar position) and multi-token per-row writes
+run as plain tensor code, as they run as XLA code in paddle_tpu. Paged
+caches are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...kernels.cache_write import fused_slot_write
+from ...kernels.mega_decode import mega_decode_step
+
+__all__ = ["quantized_kv_cache", "cached_attention", "causal_attention"]
+
+_NEG_INF = -1e30
+
+
+def causal_attention(q, k, v):
+    """Plain causal ``softmax(q k^T / sqrt(d)) v`` on ``[B, S, H, D]`` — the
+    no-cache forward. On the TPU this is the Pallas flash kernel (B1,
+    ``_pallas_flash``), which the port has not written yet, so a CUDA
+    tensor raises here rather than run a stand-in (ROADMAP.md, training
+    slice)."""
+    if q.device.type != "cpu":
+        raise NotImplementedError(
+            "causal_attention on the card needs the flash-attention kernel "
+            "(B1), which is not ported yet — see ROADMAP.md")
+    S, hd = q.shape[1], q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+    keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    logits = torch.where(keep, logits, torch.full_like(logits, _NEG_INF))
+    probs = torch.softmax(logits.float(), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
+
+
+def quantized_kv_cache(batch, max_len, kv_heads, head_dim, device):
+    """An int8 KV-cache half: int8 values with one f32 scale per
+    (batch, position, head) row."""
+    return {"data": torch.zeros((batch, max_len, kv_heads, head_dim),
+                                dtype=torch.int8, device=device),
+            "scale": torch.zeros((batch, max_len, kv_heads),
+                                 dtype=torch.float32, device=device)}
+
+
+def _quant_rows(x):
+    """Per-(b, s, head) symmetric int8 quantisation of [B, S, nkv, hd]:
+    ``round(x / max(amax/127, 1e-12))``, round half to even as jnp.round."""
+    xf = x.float()
+    scale = xf.abs().amax(-1) / 127.0
+    q = torch.round(xf / torch.clamp(scale, min=1e-12)[..., None])
+    return q.to(torch.int8), scale
+
+
+def _is_paged(cache) -> bool:
+    return isinstance(cache, dict) and "bt" in cache
+
+
+def _reject_paged(cache):
+    if _is_paged(cache):
+        raise NotImplementedError(
+            "paged KV caches are not ported yet — see ROADMAP.md")
+
+
+def _write_rows(arr, vals, pos):
+    """Write [B, S, ...] ``vals`` into ``arr`` [B, L, ...] at [pos, pos+S)
+    (scalar pos: every row at one offset) or [pos[b], pos[b]+S) per row."""
+    B, S, L = vals.shape[0], vals.shape[1], arr.shape[1]
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        t = pos.to(torch.int64)[:, None] + torch.arange(S, device=arr.device)
+        ok = (t >= 0) & (t < L)
+        b_idx = torch.arange(B, device=arr.device)[:, None].expand(B, S)
+        arr[b_idx[ok], t[ok]] = vals.to(arr.dtype)[ok]
+        return
+    # scalar offset: lax.dynamic_update_slice semantics (start clamped so
+    # the S rows fit)
+    start = min(max(int(pos), 0), L - S)
+    arr[:, start:start + S] = vals.to(arr.dtype)
+
+
+def _cache_write(cache, rows, pos):
+    """Write [B, S, nkv, hd] rows into a slot cache in place. The per-row
+    S=1 int8 form is the decode hot path and goes through the
+    ``fused_slot_write`` kernel; the rest is plain tensor code."""
+    _reject_paged(cache)
+    per_row = isinstance(pos, torch.Tensor) and pos.ndim == 1
+    if isinstance(cache, dict):
+        qrows, scale = _quant_rows(rows)
+        if per_row and rows.shape[1] == 1:
+            fused_slot_write(cache["data"], qrows, pos)
+            fused_slot_write(cache["scale"], scale, pos)
+        else:
+            _write_rows(cache["data"], qrows, pos)
+            _write_rows(cache["scale"], scale, pos)
+        return cache
+    _write_rows(cache, rows, pos)
+    return cache
+
+
+def _cache_read(cache):
+    """[B, L, nkv, hd] view: int8 dicts dequantise to f32, tensor caches
+    are returned unchanged (their dtype drives the PV product)."""
+    _reject_paged(cache)
+    if isinstance(cache, dict):
+        return cache["data"].float() * cache["scale"][..., None]
+    return cache
+
+
+def _fused_decode_attention(q, k, v, kc, vc, pos):
+    """S=1 slot-decode step on int8 dict caches (paddle_tpu's
+    ``_fused_decode_attention`` with ``PADDLE_TPU_FUSED_CACHE_WRITE``).
+
+    Attends the OLD cache under a strict ``< pos`` mask and merges the new
+    row through its quantise -> dequantise round trip, then writes the
+    quantised rows and scales with four ``fused_slot_write`` launches. The
+    writes are issued after every read of the old cache on the same
+    stream, so they cannot overtake them."""
+    ko, vo = _cache_read(kc), _cache_read(vc)
+    B, L, nkv, hd = ko.shape
+    nh = q.shape[2]
+    g = nh // nkv
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, nkv, g, hd)
+    logits = (ko[:, :, :, None, :] * qf[:, None]).sum(-1) * scale
+    strict = torch.arange(L, device=q.device)[None, :] < pos[:, None]
+    logits = torch.where(strict[:, :, None, None], logits,
+                         torch.full_like(logits, _NEG_INF))
+    kq, ks = _quant_rows(k)
+    vq, vs = _quant_rows(v)
+    k_at = (kq.float() * ks[..., None]).reshape(B, nkv, 1, hd)
+    v_at = (vq.float() * vs[..., None]).reshape(B, nkv, 1, hd)
+    logit_new = (k_at * qf).sum(-1) * scale                # [B,kv,g]
+    m = torch.maximum(logits.amax(1), logit_new)
+    p = torch.exp(logits - m[:, None])
+    p_new = torch.exp(logit_new - m)
+    den = p.sum(1) + p_new
+    ctx = (p[..., None] * vo[:, :, :, None, :]).sum(1)
+    ctx = ctx + p_new[..., None] * v_at
+    ctx = (ctx / den[..., None]).reshape(B, 1, nh, hd).to(q.dtype)
+    fused_slot_write(kc["data"], kq, pos)
+    fused_slot_write(kc["scale"], ks, pos)
+    fused_slot_write(vc["data"], vq, pos)
+    fused_slot_write(vc["scale"], vs, pos)
+    return ctx, kc, vc
+
+
+def _cached_attention_plain(q, k, v, kc, vc, pos):
+    """Write, read, attend: the general form (scalar pos, or per-row pos
+    with S > 1). Logits in f32; PV at the cache dtype, as paddle_tpu."""
+    _cache_write(kc, k, pos)
+    _cache_write(vc, v, pos)
+    ka, va = _cache_read(kc), _cache_read(vc)
+    nh, nkv = q.shape[2], ka.shape[2]
+    if nkv != nh:
+        ka = ka.repeat_interleave(nh // nkv, dim=2)
+        va = va.repeat_interleave(nh // nkv, dim=2)
+    L, S, hd = ka.shape[1], q.shape[1], q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          ka.float()) / math.sqrt(hd)
+    l_ids = torch.arange(L, device=q.device)
+    s_ids = torch.arange(S, device=q.device)
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        mask = (l_ids[None, None, :]
+                <= pos.to(torch.int64)[:, None, None] + s_ids[None, :, None])
+        mask = mask[:, None]                               # [B,1,S,L]
+    else:
+        mask = l_ids[None, :] <= int(pos) + s_ids[:, None]  # [S, L]
+    logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(va.dtype), va)
+    return ctx.to(q.dtype), kc, vc
+
+
+def cached_attention(q, k, v, k_cache, v_cache, pos):
+    """Incremental attention for autoregressive decode (serving path).
+
+    Writes the S new k/v rows into the caches at [pos, pos+S) IN PLACE and
+    attends q (query positions pos..pos+S-1) over every cache position
+    <= its own. q/k/v: [B, S, nh|nkv, hd]; caches: [B, L, nkv, hd] tensors
+    or int8 dicts; pos: an int (every row at one offset) or a [B] int32
+    tensor of per-row offsets (continuous batching). Returns
+    (ctx [B, S, nh, hd], k_cache, v_cache) — the same cache objects.
+    """
+    _reject_paged(k_cache)
+    slot_decode = (isinstance(pos, torch.Tensor) and pos.ndim == 1
+                   and q.shape[1] == 1)
+    if not slot_decode:
+        return _cached_attention_plain(q, k, v, k_cache, v_cache, pos)
+    if isinstance(k_cache, dict):
+        return _fused_decode_attention(q, k, v, k_cache, v_cache, pos)
+    return mega_decode_step(q.contiguous(), k.contiguous(), v.contiguous(),
+                            k_cache, v_cache, pos)
