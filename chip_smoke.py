@@ -7,12 +7,17 @@ line) without a card or outside the repository. Phases, each fatal on
 failure:
 
 1. card: name and power limit (nvidia-smi); TF32 matmuls off.
-2. build: compile every kernel from the repository's CUDA sources.
+2. build: compile every kernel from the repository's CUDA sources, one
+   nvcc per source, all at once, each timed.
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the serving slice's shapes (gpt_125m: B=8, L=1024, 12 heads of 64),
-   several position vectors; error, kernel / plain / library-call time
-   (CUDA events, L2 flushed before each launch) and the least time the
-   card could take (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s).
+   its slice's shapes; error, kernel / plain / library-call time (CUDA
+   events, L2 flushed before each launch) and the least time the card
+   could take (bytes over 3.35 TB/s, operations over the peak for their
+   type: 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32).
+   Serving (gpt_125m: B=8, L=1024, 12 heads of 64): mega decode (B4), slot
+   write (B3). Training (gpt_125m at batch 8 x seq 1024): flash attention
+   forward and backward (B1) at B=8, H=12, S=1024, D=64; fused
+   cross-entropy forward and backward (B2) at N=8192, V=50304.
 4. serving, bf16 cache: gpt_125m with seeded random weights behind
    ContinuousBatchingEngine(slots=8, max_len=1024, tick_tokens=8) and
    PredictorServer; 8 concurrent POST /generate. The mega-decode launch
@@ -22,10 +27,18 @@ failure:
    is accepted only where the CPU oracle's top-2 logit margin is < 1e-4).
 6. serving, int8 cache: 4 requests; slot-write launches must equal
    ticks x tick_tokens x 12 layers x 4.
-7. summary: one {"kernels": [...]} line, the card line, and last the
+7. training parity, f32: gpt_125m with f32 weights on the card and a CPU
+   copy; one loss and backward at batch 2 x seq 128; loss and every
+   parameter's grad against the CPU's.
+8. training step, bf16: TrainStep(gpt_125m().bfloat16(), loss_fn,
+   AdamW(lr=1e-4, multi_precision=True)) at batch 8 x seq 1024, 1 warm
+   step then 5 on the same batch: finite, decreasing losses; the kernel
+   launch counts equal their formulas and no plain version runs.
+9. summary: one {"kernels": [...]} line, the card line, and last the
    {"ok": true, "device": {...}} line.
 """
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -36,6 +49,7 @@ import urllib.request
 L_SLICE, B_SLICE, NKV, HD = 1024, 8, 12, 64
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_OPS_PER_S = 67e12               # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12             # H100 SXM bf16 tensor cores, dense
 MAX_NEW = 32
 TICK = 8
 LAYERS = 12
@@ -88,8 +102,8 @@ def b4_cost(pos, L, nh, nkv, hd, q_bytes, c_bytes):
     return nbytes, ops
 
 
-def bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -225,6 +239,377 @@ def check_slot_write(torch, cw, flush, rng_pos):
     return rows
 
 
+def close(torch, got, want, rtol, atol_frac):
+    """Element-by-element check ``|got - want| <= rtol |want| + atol`` on
+    the entries where the reference is finite (the others must be equal),
+    with ``atol = atol_frac * typical`` and ``typical`` the median of the
+    nonzero |want| in an even subsample of at most 2^20 entries: the size
+    of a typical entry, so that no single large entry sets the limit for
+    the rest, and entries that are 0 by masking do not shrink it.
+    Returns (max |err|, typical, worst err / limit); the check passes when
+    the last is <= 1, and it is inf where the two disagree on which
+    entries are finite."""
+    g, w = got.float(), want.float()
+    fin = w.isfinite()
+    if not bool((g.isfinite() == fin).all()) or not torch.equal(
+            torch.where(fin, 0.0, g), torch.where(fin, 0.0, w)):
+        return float("inf"), 0.0, float("inf")
+    a = torch.where(fin, w, 0.0).abs()
+    sub = a.flatten()[::max(1, a.numel() >> 20)]
+    sub = sub[sub > 0]
+    typical = sub.median().item() if sub.numel() else 0.0
+    err = torch.where(fin, g - w, 0.0).abs()
+    limit = a.mul_(rtol).add_(atol_frac * typical)
+    worst = torch.where(limit > 0, err / limit,
+                        torch.where(err > 0, float("inf"), 0.0)).max()
+    return err.max().item(), typical, worst.item()
+
+
+# Limits (rtol, atol_frac) for close(), element by element:
+# - lse and per-row loss (f32): the log of an f32 sum at 6-16, where one
+#   f32 step is ~1e-6: 1e-6 of each entry plus 1e-6 of a typical one
+#   (on the card: at most 1.9e-6, two steps).
+# - f32 outputs of B1 (out, dq, dk, dv): the same f32 operations as the
+#   plain version with sums of up to 1,024 terms taken in another order,
+#   so 1e-5 of each entry plus 5e-5 of a typical one.
+#   An entry that cancels to near 0 (dq, dk) keeps the f32 error of its
+#   larger terms: on the card up to 8e-7, 1.5e-5 of a typical |dq| or
+#   |dk| (0.03-0.05).
+# - bf16 outputs of B1: each side rounds its own f32 result to bf16, so
+#   an entry may differ by one bf16 step, at most 2^-7 of its size; the
+#   atol of one step of a typical entry covers the f32 differences of
+#   entries that cancel to near 0 (dq, dk).
+# - dlogits: an elementwise exp of the same f32 values, no sum, so one
+#   step of the output type (2^-7 bf16, 1e-6 f32) and no atol: a zero
+#   (a masked column) must stay exactly zero.
+LIM_LSE = (1e-6, 1e-6)
+LIM_F32 = (1e-5, 5e-5)
+LIM_BF16 = (2.0 ** -7, 2.0 ** -7)
+LIM_DLOGITS = {"bf16": (2.0 ** -7, 0.0), "f32": (1e-6, 0.0)}
+
+
+def check_all(torch, what, comparisons):
+    """Run close() on each (name, got, want, (rtol, atol_frac)), print
+    every result on one line, then fail if any is over its limit.
+    Returns {name: max |err|}."""
+    row, bad, parts = {}, [], []
+    for name, got, want, (rtol, atol_frac) in comparisons:
+        err, typical, worst = close(torch, got, want, rtol, atol_frac)
+        row[name] = err
+        parts.append(f"{name} {err:.3e} (typical {typical:.3e}, limit "
+                     f"{rtol:.3g}|x| + {atol_frac:.3g} typical, worst "
+                     f"{worst:.3g} of limit)")
+        if not worst <= 1.0:
+            bad.append(name)
+    print(f"  {what}: max |err| " + "; ".join(parts), flush=True)
+    if bad:
+        fail(f"{what}: {', '.join(bad)} over the limit")
+    return row
+
+
+def b1_cost(B, H, Sq, Sk, D, causal, q_off, k_off, elem):
+    """(fwd bytes, fwd ops, bwd bytes, bwd ops) at these shapes: each
+    input read once and each output written once; 2 matmuls of 2*D
+    operations per visible (query, key) pair forward, 5 backward
+    (s recomputed, dP, dV, dK, dQ)."""
+    if causal:
+        pairs = sum(max(0, min(Sk, q_off + i - k_off + 1))
+                    for i in range(Sq))
+    else:
+        pairs = Sq * Sk
+    pairs *= B * H
+    q_b, kv_b, lse_b = B * H * Sq * D * elem, B * H * Sk * D * elem, \
+        B * H * Sq * 4
+    fwd_bytes = 2 * q_b + 2 * kv_b + lse_b           # q, k, v in; out, lse
+    bwd_bytes = 3 * q_b + 2 * kv_b + lse_b + q_b + 2 * kv_b  # + dq, dk, dv
+    return fwd_bytes, 4 * D * pairs, bwd_bytes, 10 * D * pairs
+
+
+def check_flash(torch, fa, flush):
+    """Phase 3, B1: kernel vs plain at the training slice's shapes."""
+    B, H, S, D = B_SLICE, NKV, L_SLICE, HD
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    scale = 1.0 / D ** 0.5
+    cases = [(torch.bfloat16, True, 0, 0), (torch.float32, True, 0, 0),
+             (torch.bfloat16, False, 0, 0), (torch.float32, False, 0, 0),
+             # keys start at global position 512: query rows 0..511 see no
+             # key (out 0, lse -inf, zero grads)
+             (torch.float32, True, 0, 512)]
+    errs = {}
+    for dt, causal, q_off, k_off in cases:
+        q, k, v, do = (torch.randn(B, H, S, D, device=dev,
+                                   generator=gen).to(dt) for _ in range(4))
+        out, lse = fa.flash_attn_fwd(q, k, v, causal, scale, q_off, k_off)
+        out_p, lse_p = fa.flash_attn_fwd_plain(q, k, v, causal, scale, q_off,
+                                               k_off)
+        grads = fa.flash_attn_bwd(q, k, v, out_p, lse_p, do, causal, scale,
+                                  q_off, k_off)
+        grads_p = fa.flash_attn_bwd_plain(q, k, v, out_p, lse_p, do, causal,
+                                          scale, q_off, k_off)
+        torch.cuda.synchronize()
+        lim = LIM_BF16 if dt == torch.bfloat16 else LIM_F32
+        row = check_all(
+            torch, f"flash_attn {dt} causal={causal} q_off/k_off={q_off}/"
+            f"{k_off}", (("out", out, out_p, lim),
+                         ("lse", lse, lse_p, LIM_LSE),
+                         ("dq", grads[0], grads_p[0], lim),
+                         ("dk", grads[1], grads_p[1], lim),
+                         ("dv", grads[2], grads_p[2], lim)))
+        if k_off > q_off and not (bool((lse[:, :, :k_off] == float(
+                "-inf")).all()) and not out[:, :, :k_off].any()
+                and not grads[0][:, :, :k_off].any()):
+            fail("flash: fully masked rows must give out 0, lse -inf, dq 0")
+        errs[(dt, causal, k_off)] = row
+
+    rows = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.randn(B, H, S, D, device=dev,
+                                   generator=gen).to(dt) for _ in range(4))
+        out, lse = fa.flash_attn_fwd(q, k, v, True, scale)
+        fwd_ms = timed(torch, lambda: fa.flash_attn_fwd(q, k, v, True, scale),
+                       flush)
+        bwd_ms = timed(torch, lambda: fa.flash_attn_bwd(
+            q, k, v, out, lse, do, True, scale), flush)
+        pfwd_ms = timed(torch, lambda: fa.flash_attn_fwd_plain(
+            q, k, v, True, scale), flush, iters=10)
+        pbwd_ms = timed(torch, lambda: fa.flash_attn_bwd_plain(
+            q, k, v, out, lse, do, True, scale), flush, iters=10)
+        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lib_fwd = timed(torch, lambda: sdpa(q, k, v, is_causal=True), flush)
+        lib_both = timed(torch, lambda: torch.autograd.grad(
+            sdpa(qr, kr, vr, is_causal=True), (qr, kr, vr), do), flush)
+        fb, fo, bb, bo = b1_cost(B, H, S, S, D, True, 0, 0,
+                                 q.element_size())
+        peak = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
+        label = "bf16" if dt == torch.bfloat16 else "f32"
+        for kind, ms, plain_ms, lib_ms, nb, ops in (
+                ("fwd", fwd_ms, pfwd_ms, lib_fwd, fb, fo),
+                ("bwd", bwd_ms, pbwd_ms, lib_both - lib_fwd, bb, bo)):
+            bound_ms, by = bound(nb, ops, peak)
+            rows[(label, kind)] = dict(ms=ms, plain_ms=plain_ms,
+                                       library_ms=lib_ms, bound_ms=bound_ms,
+                                       bound_by=by)
+            print(f"  flash_attn_{kind} {label} causal: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)", flush=True)
+    return errs, rows
+
+
+def ce_cost(N, V, elem):
+    """(fwd bytes, fwd ops, bwd bytes, bwd ops): logits read once (and
+    dlogits written once backward), the [N] vectors once; 4 f32
+    operations per logit forward (max, subtract, exp, add), 5 backward."""
+    fwd = N * V * elem + N * 4 + 2 * N * 4
+    bwd = 2 * N * V * elem + 3 * N * 4
+    return fwd, 4 * N * V, bwd, 5 * N * V
+
+
+def check_ce(torch, ce, flush):
+    """Phase 3, B2: kernel vs plain at the training slice's shapes (the
+    port runs all B*S = 8192 rows; 8184 = 8 x 1023 is the sliced count)."""
+    V = 50304
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = [(8192, torch.bfloat16, None), (8192, torch.float32, None),
+             (8184, torch.bfloat16, 50257), (8184, torch.float32, 50257)]
+    errs = {}
+    for N, dt, vv in cases:
+        lg = (torch.randn(N, V, device=dev, generator=gen) * 3).to(dt)
+        lab = torch.randint(0, vv or V, (N,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        lab[:4] = torch.tensor([0, 0, (vv or V) - 1, V - 1])
+        g = torch.rand(N, device=dev, generator=gen)
+        per, lse = ce.ce_fwd(lg, lab, vv)
+        per_p, lse_p = ce.ce_fwd_plain(lg, lab, vv)
+        d = ce.ce_bwd(lg, lab, lse_p, g, vv)
+        d_p = ce.ce_bwd_plain(lg, lab, lse_p, g, vv)
+        torch.cuda.synchronize()
+        label = "bf16" if dt == torch.bfloat16 else "f32"
+        errs[(N, dt, vv)] = check_all(
+            torch, f"fused_ce N={N} {dt} valid_vocab={vv}",
+            (("per", per, per_p, LIM_LSE), ("lse", lse, lse_p, LIM_LSE),
+             ("dlogits", d, d_p, LIM_DLOGITS[label])))
+
+    rows = {}
+    lib = torch.nn.functional.cross_entropy
+    for dt in (torch.bfloat16, torch.float32):
+        N = 8192
+        lg = (torch.randn(N, V, device=dev, generator=gen) * 3).to(dt)
+        lab = torch.randint(0, V, (N,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        g = torch.rand(N, device=dev, generator=gen)
+        per, lse = ce.ce_fwd(lg, lab)
+        lab64 = lab.long()
+        lgr = lg.detach().clone().requires_grad_()
+        fwd_ms = timed(torch, lambda: ce.ce_fwd(lg, lab), flush)
+        bwd_ms = timed(torch, lambda: ce.ce_bwd(lg, lab, lse, g), flush)
+        pfwd_ms = timed(torch, lambda: ce.ce_fwd_plain(lg, lab), flush,
+                        iters=10)
+        pbwd_ms = timed(torch, lambda: ce.ce_bwd_plain(lg, lab, lse, g),
+                        flush, iters=10)
+        lib_fwd = timed(torch, lambda: lib(lg, lab64, reduction="none"),
+                        flush)
+        lib_both = timed(torch, lambda: torch.autograd.grad(
+            lib(lgr, lab64, reduction="none"), lgr, g.to(dt)), flush)
+        fb, fo, bb, bo = ce_cost(N, V, lg.element_size())
+        label = "bf16" if dt == torch.bfloat16 else "f32"
+        for kind, ms, plain_ms, lib_ms, nb, ops in (
+                ("fwd", fwd_ms, pfwd_ms, lib_fwd, fb, fo),
+                ("bwd", bwd_ms, pbwd_ms, lib_both - lib_fwd, bb, bo)):
+            bound_ms, by = bound(nb, ops)
+            rows[(label, kind)] = dict(ms=ms, plain_ms=plain_ms,
+                                       library_ms=lib_ms, bound_ms=bound_ms,
+                                       bound_by=by)
+            print(f"  ce_{kind} {label} N={N}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, F.cross_entropy {lib_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)",
+                  flush=True)
+    return errs, rows
+
+
+def train_parity(torch, pkg):
+    """Phase 7: one f32 loss + backward of gpt_125m on the card against a
+    CPU copy of the same weights, batch 2 x seq 128."""
+    GPT, cfg = pkg["GPT"], pkg["gpt_125m"]
+    model = GPT(cfg(), seed=2).train()
+    cpu = GPT(cfg(), device="cpu", seed=3).train()
+    pkg["load"](cpu, {n: p.detach().cpu().numpy()
+                      for n, p in model.named_parameters()})
+    ids = pkg["np"].random.RandomState(1).randint(
+        0, model.cfg.vocab_size, (2, 128))
+    losses, grads = [], []
+    for m in (model, cpu):
+        x = torch.from_numpy(ids).to(m.device)
+        loss = m.loss_fn(m(x), x)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    if not rel <= 1e-5:
+        fail(f"f32 parity: loss card {losses[0]} cpu {losses[1]} (rel {rel} "
+             "> 1e-5)")
+    worst, worst_name = 0.0, ""
+    for n, g_cpu in grads[1].items():
+        d = (grads[0][n].cpu() - g_cpu).abs().max().item()
+        r = d / max(g_cpu.abs().max().item(), 1e-30)
+        if r > worst:
+            worst, worst_name = r, n
+    if not worst <= 1e-4:
+        fail(f"f32 parity: grad {worst_name} max|diff| / max|g| = {worst} "
+             "> 1e-4")
+    print(f"  loss card {losses[0]:.6f} cpu {losses[1]:.6f} (rel {rel:.2e}, "
+          f"tol 1e-5); worst grad max|diff|/max|g| {worst:.2e} "
+          f"({worst_name}; tol 1e-4) over {len(grads[1])} parameters",
+          flush=True)
+
+
+def _count_plain(mods):
+    """Wrap every ``*_plain`` function of ``mods`` with a call counter;
+    returns (counts, restore)."""
+    counts, saved = {}, []
+    for mod in mods:
+        for name in [n for n in vars(mod) if n.endswith("_plain")]:
+            fn = getattr(mod, name)
+            saved.append((mod, name, fn))
+            counts[name] = 0
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                counts[_name] += 1
+                return _fn(*a, **kw)
+            setattr(mod, name, counted)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return counts, restore
+
+
+def profile_step(torch, step, ids):
+    """One more step under torch.profiler: device time by kernel (top 10)
+    and the device's busy share of the step's wall time. Prints "not
+    measured" when the profiler reports no device time. Only device
+    events count: a CPU op's device time repeats its kernels'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(ids, ids)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_us = sum(r[0] for r in rows)
+    if not rows:
+        print("  profiled step: device time not measured (the profiler "
+              "reported none)", flush=True)
+        return
+    print(f"  profiled step: wall {wall_us / 1e3:.1f} ms (profiler on), "
+          f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.0f}"
+          " % of wall; one stream, so kernels do not overlap); top by "
+          "device time:", flush=True)
+    for us, n, key in sorted(rows, reverse=True)[:10]:
+        print(f"    {us / 1e3:8.3f} ms {100 * us / busy_us:5.1f} % x{n:<5d} "
+              f"{key[:90]}", flush=True)
+
+
+def train_step(torch, pkg, steps=5):
+    """Phase 8: the slice's step, bench.py's geometry. Returns the kernel
+    launch counts of the timed steps and the losses."""
+    fa, ce = pkg["fa"], pkg["ce"]
+    model = pkg["GPT"](pkg["gpt_125m"](), seed=0).bfloat16()
+    opt = pkg["AdamW"](learning_rate=1e-4, parameters=model.parameters(),
+                       multi_precision=True)
+    step = pkg["TrainStep"](model, model.make_loss_fn(), opt)
+    rs = pkg["np"].random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, model.cfg.vocab_size,
+                                      (B_SLICE, L_SLICE)).astype("int64"))
+    ids = ids.to(model.device)
+    losses = [step(ids, ids)]                    # warm: allocations, cuBLAS
+    torch.cuda.synchronize()
+    plain, restore = _count_plain([fa, ce])
+    fa.flash_attn_fwd.launches = fa.flash_attn_bwd.launches = 0
+    ce.ce_fwd.launches = ce.ce_bwd.launches = 0
+    try:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(step(ids, ids))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    counts = {"flash_attn_fwd": fa.flash_attn_fwd.launches,
+              "flash_attn_bwd": fa.flash_attn_bwd.launches,
+              "ce_fwd": ce.ce_fwd.launches, "ce_bwd": ce.ce_bwd.launches}
+    vals = [float(x) for x in losses]
+    want = {"flash_attn_fwd": steps * LAYERS, "flash_attn_bwd":
+            steps * LAYERS, "ce_fwd": steps, "ce_bwd": steps}
+    if counts != want or any(plain.values()):
+        fail(f"train step launches {counts} != {want} (= {steps} steps x "
+             f"{LAYERS} layers / x 1), plain calls {plain}")
+    ln_v = math.log(model.cfg.vocab_size)
+    if not all(math.isfinite(x) for x in vals):
+        fail(f"train step: non-finite loss in {vals}")
+    if not abs(vals[0] - ln_v) <= 0.5:
+        fail(f"train step: first loss {vals[0]} not within 0.5 of ln V "
+             f"{ln_v:.4f}")
+    if not vals[-1] < min(vals[0], vals[1]):
+        fail(f"train step: the last loss is not below the first: {vals}")
+    ms = wall / steps * 1e3
+    profile_step(torch, step, ids)
+    print(f"  losses {['%.4f' % x for x in vals]} (warm step first); "
+          f"{ms:.1f} ms/step, {B_SLICE * L_SLICE / (ms / 1e3):.0f} tokens/s "
+          f"(smoke number, {steps} steps); launches {counts}, plain calls "
+          f"{plain}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    return counts
+
+
 def post_all(url, prompts, max_new):
     """POST /generate for every prompt at once; returns (status, body)s."""
     results = [None] * len(prompts)
@@ -303,14 +688,20 @@ def main():
         from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                                 PredictorServer)
         from paddle_tpu_torch.kernels import _build
+        from paddle_tpu_torch.jit import TrainStep
         from paddle_tpu_torch.kernels import cache_write as cw
+        from paddle_tpu_torch.kernels import flash_attention as fa
+        from paddle_tpu_torch.kernels import fused_ce as ce
         from paddle_tpu_torch.kernels import mega_decode as md
         from paddle_tpu_torch.models import (GPTForCausalLM, generate,
                                              gpt_125m)
+        from paddle_tpu_torch.optimizer import AdamW
     except ImportError as e:
         fail(f"cannot import paddle_tpu_torch (run from the repo root): {e}")
-    pkg = {"md": md, "cw": cw, "Engine": ContinuousBatchingEngine,
-           "Server": PredictorServer}
+    pkg = {"md": md, "cw": cw, "fa": fa, "ce": ce, "np": np,
+           "Engine": ContinuousBatchingEngine, "Server": PredictorServer,
+           "GPT": GPTForCausalLM, "gpt_125m": gpt_125m, "AdamW": AdamW,
+           "TrainStep": TrainStep, "load": load_paddle_tpu_params}
     t_start = time.perf_counter()
 
     print("phase 1: card", flush=True)
@@ -326,8 +717,11 @@ def main():
     print("phase 2: build", flush=True)
     t0 = time.perf_counter()
     per = _build.build()
-    print(f"  built {sorted(per)} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.NVCC_FLAGS})", flush=True)
+    if sorted(per) != sorted(_build.SOURCES):
+        fail(f"build: compiled {sorted(per)}, expected {_build.SOURCES}")
+    print(f"  built {len(per)} libraries in {time.perf_counter() - t0:.2f} "
+          "s (" + ", ".join(f"{n} {t:.2f} s" for n, t in per.items()) +
+          f"; nvcc {_build.NVCC_FLAGS})", flush=True)
 
     print("phase 3: kernels vs plain versions", flush=True)
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -336,7 +730,10 @@ def main():
                                             B_SLICE)]
     b4_errs, b4_rows = check_mega_decode(torch, md, flush, rng_pos)
     b3_rows = check_slot_write(torch, cw, flush, rng_pos)
+    b1_errs, b1_rows = check_flash(torch, fa, flush)
+    b2_errs, b2_rows = check_ce(torch, ce, flush)
     del flush
+    torch.cuda.empty_cache()
 
     print("phase 4: serving gpt_125m, bf16 cache", flush=True)
     model = GPTForCausalLM(gpt_125m(), seed=0)        # the card by default
@@ -387,8 +784,18 @@ def main():
         fail(f"int8 launches {counts} != slot {want} (= {ticks} x {TICK} x "
              f"{LAYERS} x 4), mega 0")
     b3_launches = counts["fused_slot_write"]
+    del model, oracle
 
-    print("phase 7: summary", flush=True)
+    print("phase 7: training parity, f32 gpt_125m on the card vs the CPU",
+          flush=True)
+    train_parity(torch, pkg)
+    torch.cuda.empty_cache()
+
+    print("phase 8: training step, bf16 gpt_125m, AdamW multi_precision, "
+          f"batch {B_SLICE} x seq {L_SLICE}", flush=True)
+    train_counts = train_step(torch, pkg)
+
+    print("phase 9: summary", flush=True)
     main_b4 = b4_rows[("bf16", "serving-like pos")]
     main_b3 = b3_rows["int8 data"]
     kernels = [
@@ -408,6 +815,27 @@ def main():
          "bound_ms": main_b3["bound_ms"], "bound_by": main_b3["bound_by"],
          "library_ms": main_b3["library_ms"]},
     ]
+    b1_main = b1_errs[(torch.bfloat16, True, 0)]
+    b2_main = b2_errs[(8192, torch.bfloat16, None)]
+    for name, src, replaces, err, row in (
+            ("flash_attn_fwd", "flash_attention.cu",
+             "paddle_tpu/nn/functional/flash_attention.py:134",
+             max(b1_main["out"], b1_main["lse"]), b1_rows[("bf16", "fwd")]),
+            ("flash_attn_bwd", "flash_attention.cu",
+             "paddle_tpu/nn/functional/flash_attention.py:134",
+             max(b1_main["dq"], b1_main["dk"], b1_main["dv"]),
+             b1_rows[("bf16", "bwd")]),
+            ("ce_fwd", "fused_ce.cu", "paddle_tpu/kernels/fused_ce.py:172",
+             max(b2_main["per"], b2_main["lse"]), b2_rows[("bf16", "fwd")]),
+            ("ce_bwd", "fused_ce.cu", "paddle_tpu/kernels/fused_ce.py:210",
+             b2_main["dlogits"], b2_rows[("bf16", "bwd")])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": train_counts[name],
+            "max_abs_err": err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

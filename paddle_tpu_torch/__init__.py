@@ -12,9 +12,12 @@ for the TPU are hand-written CUDA C++ for ``sm_90a`` here
 (``kernels/csrc``), built by ``nvcc`` at first use; on CPU tensors each
 kernel wrapper runs its plain PyTorch version instead.
 
-Covered today (the serving slice): GPT (``models.gpt``), greedy
-``generate``, slot and int8 slot KV caches, the continuous-batching
-engine and its HTTP server.
+Covered today: serving — GPT (``models.gpt``), greedy ``generate``, slot
+and int8 slot KV caches, the continuous-batching engine and its HTTP
+server; training — the GPT step: ``flash_attention`` and
+``cross_entropy`` on their kernels, ``optimizer.AdamW`` / ``Adam`` (with
+f32 master weights), ``optimizer.lr`` schedulers,
+``nn.clip.ClipGradByGlobalNorm`` and ``jit.TrainStep``.
 """
 from .device import resolve_device
 

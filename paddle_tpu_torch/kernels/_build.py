@@ -24,7 +24,7 @@ from pathlib import Path
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "load"]
 
-SOURCES = ("mega_decode", "cache_write")
+SOURCES = ("mega_decode", "cache_write", "flash_attention", "fused_ce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,0 +1,177 @@
+"""Flash attention forward and backward on ``(B, H, S, D)``, returning the
+log-sum-exp, with runtime query/key offsets for causal masking.
+
+Port of the TPU kernel behind paddle_tpu/nn/functional/flash_attention.py:
+``_pallas_flash`` (the library Pallas flash-attention kernel and its
+backward); the math is the one paddle_tpu writes out in
+kernels/flash_block.py (``_fwd``, ``_bwd``, ``compute_delta``). The CUDA
+kernels are ``csrc/flash_attention.cu``: a 64-row tile per block, the
+online softmax in registers, f32 FMAs on the CUDA cores (see the source
+note for the bound and the design).
+
+Launches per wrapper call (each call counts once in ``.launches``):
+``flash_attn_fwd`` issues one device launch; ``flash_attn_bwd`` issues
+two, the dQ pass (which also computes ``delta = rowsum(dO * O)``) and
+then the dK/dV pass.
+
+Contract, as flash_block's: f32 accumulation; a row whose every key is
+masked returns ``out = 0``, ``lse = -inf`` and zero gradients. ``q_off``
+and ``k_off`` are the global positions of ``q[0]`` and ``k[0]``; causal
+keeps ``q_off + i >= k_off + j`` (top-left aligned at 0/0). The LSE is
+``[B, H, Sq]`` f32 (not the TPU's lane-broadcast ``[.., 128]`` form).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import (_build, check_launch, common_device, ptr, require_contiguous,
+               stream_ptr)
+
+__all__ = ["flash_attn_fwd", "flash_attn_bwd", "flash_attn_fwd_plain",
+           "flash_attn_bwd_plain"]
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_MAX_HEAD_DIM = 128
+_NEG_INF = float("-inf")
+_GEO = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_SIGNATURES = {
+    "flash_fwd_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + _GEO),
+    "flash_bwd_launch": (ctypes.c_int, [ctypes.c_void_p] * 10 + _GEO)}
+
+
+def _acc(t):
+    """The accumulation dtype: f32, or f64 for f64 inputs (gradcheck)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _scores(q, k, causal, sm_scale, q_off, k_off):
+    """``[B, H, Sq, Sk]`` scaled scores at the accumulation dtype, -inf
+    where causal masking hides the key."""
+    a = _acc(q)
+    s = torch.matmul(q.to(a), k.to(a).transpose(-1, -2)) * sm_scale
+    if not causal:
+        return s
+    qi = torch.arange(q.shape[2], device=q.device)[:, None] + int(q_off)
+    ki = torch.arange(k.shape[2], device=q.device)[None, :] + int(k_off)
+    return torch.where(qi >= ki, s, _NEG_INF)
+
+
+def flash_attn_fwd_plain(q, k, v, causal, sm_scale, q_off=0, k_off=0):
+    """Plain PyTorch forward, materialising the ``[B, H, Sq, Sk]`` scores
+    in f32 (f64 for f64 inputs). Returns (out at q's dtype, lse [B, H,
+    Sq] at the accumulation dtype)."""
+    s = _scores(q, k, causal, sm_scale, q_off, k_off)
+    m = s.amax(-1, keepdim=True)
+    m_safe = torch.where(m == _NEG_INF, 0.0, m)
+    p = torch.exp(s - m_safe)
+    l = p.sum(-1, keepdim=True)
+    out = torch.matmul(p, v.to(p.dtype)) / torch.where(l == 0, 1.0, l)
+    lse = torch.where(l == 0, _NEG_INF, m_safe + torch.log(l))[..., 0]
+    return out.to(q.dtype), lse
+
+
+def flash_attn_bwd_plain(q, k, v, out, lse, do, causal, sm_scale, q_off=0,
+                         k_off=0):
+    """Plain PyTorch FlashAttention-2 backward against the forward's
+    (out, lse): ``p = exp(s - lse)``, ``delta = rowsum(dO * O)``,
+    ``dS = p (dO V^T - delta) scale``. Returns (dq, dk, dv) at the inputs'
+    dtypes."""
+    s = _scores(q, k, causal, sm_scale, q_off, k_off)
+    a = s.dtype
+    lse_safe = torch.where(lse == _NEG_INF, 0.0, lse.to(a))
+    p = torch.exp(s - lse_safe[..., None])             # masked: exp(-inf) = 0
+    dof = do.to(a)
+    delta = (dof * out.to(a)).sum(-1)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, v.to(a).transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * sm_scale
+    dq = torch.matmul(ds, k.to(a))
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(a))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(op, q, k, v):
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
+        raise ValueError(f"{op}: q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} must be (B, H, S, D)")
+    B, H, Sq, D = q.shape
+    if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
+        raise ValueError(f"{op}: q{tuple(q.shape)} and k{tuple(k.shape)} "
+                         "differ in B, H or D")
+    if not 1 <= D <= _MAX_HEAD_DIM or B * H > 65535:
+        raise ValueError(f"{op}: head_dim {D} (need 1..{_MAX_HEAD_DIM}), "
+                         f"B*H {B * H} (need <= 65535)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{op}: dtypes q/k/v {q.dtype}/{k.dtype}/{v.dtype} "
+                         f"(one of {_DTYPES})")
+    return B * H, Sq, k.shape[2], D
+
+
+def _geo(BH, Sq, Sk, D, causal, q_off, k_off, sm_scale, dtype):
+    return (BH, Sq, Sk, D, int(bool(causal)), int(q_off), int(k_off),
+            float(sm_scale), int(dtype == torch.bfloat16))
+
+
+def flash_attn_fwd(q, k, v, causal, sm_scale, q_off=0, k_off=0):
+    """Attention forward. q [B, H, Sq, D], k/v [B, H, Sk, D], f32 or bf16
+    (one dtype), D <= 128, contiguous, one device. On CUDA tensors
+    launches the kernel (counted in ``flash_attn_fwd.launches``); on CPU
+    tensors runs ``flash_attn_fwd_plain``. Returns (out [B, H, Sq, D] at
+    q's dtype, lse [B, H, Sq] f32)."""
+    dev = common_device("flash_attn_fwd", q, k, v)
+    if dev.type == "cpu":
+        return flash_attn_fwd_plain(q, k, v, causal, sm_scale, q_off, k_off)
+    BH, Sq, Sk, D = _check("flash_attn_fwd", q, k, v)
+    require_contiguous("flash_attn_fwd", q=q, k=k, v=v)
+    lib = _build.load("flash_attention", _SIGNATURES)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.flash_fwd_launch(
+            ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse),
+            *_geo(BH, Sq, Sk, D, causal, q_off, k_off, sm_scale, q.dtype),
+            stream_ptr(dev))
+    check_launch("flash_attn_fwd", rc)
+    flash_attn_fwd.launches += 1
+    return out, lse
+
+
+def flash_attn_bwd(q, k, v, out, lse, do, causal, sm_scale, q_off=0,
+                   k_off=0):
+    """Attention backward against the forward's (out, lse). Shapes and
+    dtypes as ``flash_attn_fwd``; out and do like q; lse [B, H, Sq] f32.
+    On CUDA tensors launches the two kernels (counted once in
+    ``flash_attn_bwd.launches``); on CPU tensors runs
+    ``flash_attn_bwd_plain``. Returns (dq, dk, dv)."""
+    dev = common_device("flash_attn_bwd", q, k, v, out, lse, do)
+    if dev.type == "cpu":
+        return flash_attn_bwd_plain(q, k, v, out, lse, do, causal, sm_scale,
+                                    q_off, k_off)
+    BH, Sq, Sk, D = _check("flash_attn_bwd", q, k, v)
+    if (out.shape != q.shape or do.shape != q.shape or out.dtype != q.dtype
+            or do.dtype != q.dtype or lse.dtype != torch.float32
+            or tuple(lse.shape) != tuple(q.shape[:3])):
+        raise ValueError(
+            f"flash_attn_bwd: out {out.dtype}{tuple(out.shape)}, do "
+            f"{do.dtype}{tuple(do.shape)}, lse {lse.dtype}{tuple(lse.shape)} "
+            f"for q {q.dtype}{tuple(q.shape)}")
+    require_contiguous("flash_attn_bwd", q=q, k=k, v=v, out=out, lse=lse,
+                       do=do)
+    lib = _build.load("flash_attention", _SIGNATURES)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.flash_bwd_launch(
+            ptr(q), ptr(k), ptr(v), ptr(out), ptr(do), ptr(lse), ptr(delta),
+            ptr(dq), ptr(dk), ptr(dv),
+            *_geo(BH, Sq, Sk, D, causal, q_off, k_off, sm_scale, q.dtype),
+            stream_ptr(dev))
+    check_launch("flash_attn_bwd", rc)
+    flash_attn_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attn_fwd.launches = 0
+flash_attn_bwd.launches = 0

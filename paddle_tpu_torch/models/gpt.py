@@ -1,14 +1,18 @@
-"""GPT decoder family (port of paddle_tpu/models/gpt.py), inference path.
+"""GPT decoder family (port of paddle_tpu/models/gpt.py): serving and
+training.
 
 Parameter names and layouts match paddle_tpu's, so weights carry across by
 name with no transpose: Linear weights stay ``[in, out]`` and apply as
 ``x @ W + b``; the ``[3H]`` qkv output is laid out ``[q(H); k(H); v(H)]``;
 the LM head is tied to the word embedding.
 
-Ported: the cached forward (prefill and per-row decode, the serving path)
-and the plain no-cache forward. Not yet: ``scan_layers``, ``use_moe``,
-``recompute``, ``fused_loss_chunk``, the pipeline class and sequence
-parallelism (ROADMAP.md).
+Ported: the cached forward (prefill and per-row decode, the serving
+path), the no-cache forward on the flash-attention kernels (training and
+evaluation), ``loss_fn`` / ``make_loss_fn`` on the fused cross-entropy
+kernels, and ``train()`` / ``bfloat16()`` (torch's own, which cast every
+float parameter as paddle_tpu's ``Layer.bfloat16()`` does). Not yet:
+``scan_layers``, ``use_moe``, ``recompute``, ``fused_loss_chunk``, the
+pipeline class and sequence parallelism (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -122,7 +126,8 @@ class GPTAttention(nn.Module):
         if cache is not None:
             ctx, kc, vc = F.cached_attention(q, k, v, cache[0], cache[1], pos)
             return self.dropout(self.out_proj(ctx.reshape(B, S, H))), (kc, vc)
-        ctx = F.causal_attention(q, k, v)
+        ctx, _ = F.flash_attention(q, k, v, causal=True,
+                                   training=self.training)
         return self.dropout(self.out_proj(ctx.reshape(B, S, H)))
 
 
@@ -255,6 +260,25 @@ class GPTForCausalLM(nn.Module):
         if self.lm_head is None:
             return x @ self.gpt.embeddings.word_embeddings.weight.t()
         return self.lm_head(x)
+
+    @staticmethod
+    def loss_fn(logits, labels):
+        """Next-token prediction: logits at position i predict labels[i+1]
+        (callers pass labels=input_ids). paddle_tpu slices the logits to
+        ``[:, :-1]``; here every row goes to ``cross_entropy`` and the last
+        position's label is the ignore index (-100) instead, which gives
+        the same mean over the same B*(S-1) tokens without copying the
+        [B, S-1, V] slice (the logits stay contiguous for the fused CE
+        kernel)."""
+        B, V = labels.shape[0], logits.shape[-1]
+        shifted = torch.cat([labels[:, 1:], labels.new_full((B, 1), -100)],
+                            dim=1)
+        return F.cross_entropy(logits.reshape(-1, V), shifted.reshape(-1))
+
+    def make_loss_fn(self):
+        """The loss this config trains with. ``fused_loss_chunk`` is not
+        ported (``_check_supported`` raises), so it is ``loss_fn``."""
+        return self.loss_fn
 
     def new_cache(self, batch_size: int, max_len: int, dtype="bfloat16"):
         """Per-layer (k, v) caches [B, max_len, nh, hd] on the model's

@@ -1,9 +1,14 @@
-"""Functionals the GPT serving slice uses (plain PyTorch, ``[B, S, H, D]``
-activations and ``[B, L, nkv, hd]`` caches as in paddle_tpu)."""
+"""Functionals the GPT slices use (plain PyTorch around the hand-written
+kernels, ``[B, S, H, D]`` activations and ``[B, L, nkv, hd]`` caches as in
+paddle_tpu)."""
 from .activation import gelu
 from .flash_attention import (cached_attention, causal_attention,
-                              quantized_kv_cache)
+                              flash_attention, quantized_kv_cache,
+                              scaled_dot_product_attention)
+from .loss import cross_entropy, softmax_with_cross_entropy
 from .norm import layer_norm
 
 __all__ = ["gelu", "layer_norm", "cached_attention", "causal_attention",
-           "quantized_kv_cache"]
+           "flash_attention", "scaled_dot_product_attention",
+           "quantized_kv_cache", "cross_entropy",
+           "softmax_with_cross_entropy"]

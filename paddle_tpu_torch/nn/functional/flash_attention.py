@@ -1,13 +1,22 @@
-"""Attention functionals, cache half: slot KV caches and ``cached_attention``.
+"""Attention functionals: the training half (``flash_attention``,
+``scaled_dot_product_attention``, the no-cache ``causal_attention``) and
+the cache half (slot KV caches and ``cached_attention``).
 
-Port of the serving half of paddle_tpu/nn/functional/flash_attention.py.
-Layout as there: activations ``[B, S, H, D]``, caches ``[B, L, nkv, hd]``
-tensors (f32/bf16) or the int8 dict form ``{"data": int8 [B, L, nkv, hd],
-"scale": f32 [B, L, nkv]}`` from ``quantized_kv_cache``.
+Port of paddle_tpu/nn/functional/flash_attention.py. Layout as there:
+activations ``[B, S, H, D]``, caches ``[B, L, nkv, hd]`` tensors (f32/bf16)
+or the int8 dict form ``{"data": int8 [B, L, nkv, hd], "scale": f32 [B,
+L, nkv]}`` from ``quantized_kv_cache``.
 
-Unlike the JAX functions, which return new caches, every function here
-writes the caches IN PLACE and returns the same objects.
+Training half: ``flash_attention`` and an unmasked
+``scaled_dot_product_attention`` run the hand-written flash-attention
+kernels (B1, ``kernels/flash_attention.py``) forward and backward through
+``_FlashAttention``, as paddle_tpu runs ``_pallas_flash`` on the TPU;
+causal masking is top-left aligned (query i sees keys j <= i). An
+explicit ``attn_mask`` runs plain tensor code, as it runs XLA code in
+paddle_tpu. Attention dropout in training is not ported (ROADMAP.md).
 
+Cache half: unlike the JAX functions, which return new caches, every
+function here writes the caches IN PLACE and returns the same objects.
 The S=1 per-row slot-decode step (the engine's decode tick) goes through
 the hand-written kernels: ``mega_decode_step`` for tensor caches,
 ``fused_slot_write`` inside ``_fused_decode_attention`` for int8 caches.
@@ -24,29 +33,94 @@ import math
 import torch
 
 from ...kernels.cache_write import fused_slot_write
+from ...kernels.flash_attention import flash_attn_bwd, flash_attn_fwd
 from ...kernels.mega_decode import mega_decode_step
 
-__all__ = ["quantized_kv_cache", "cached_attention", "causal_attention"]
+__all__ = ["flash_attention", "scaled_dot_product_attention",
+           "causal_attention", "quantized_kv_cache", "cached_attention"]
 
 _NEG_INF = -1e30
 
 
-def causal_attention(q, k, v):
-    """Plain causal ``softmax(q k^T / sqrt(d)) v`` on ``[B, S, H, D]`` — the
-    no-cache forward. On the TPU this is the Pallas flash kernel (B1,
-    ``_pallas_flash``), which the port has not written yet, so a CUDA
-    tensor raises here rather than run a stand-in (ROADMAP.md, training
-    slice)."""
-    if q.device.type != "cpu":
+class _FlashAttention(torch.autograd.Function):
+    """``[B, S, H, D]`` attention on the B1 kernels: transposes to
+    ``(B, H, S, D)`` for the kernel and back, as ``_pallas_flash`` does;
+    the backward is the kernel's FA2 backward against the saved (out,
+    lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        out, lse = flash_attn_fwd(qh, kh, vh, causal, scale)
+        ctx.save_for_backward(qh, kh, vh, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qh, kh, vh, out, lse = ctx.saved_tensors
+        do = dout.transpose(1, 2).contiguous()
+        dq, dk, dv = flash_attn_bwd(qh, kh, vh, out, lse, do, ctx.causal,
+                                    ctx.scale)
+        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2), \
+            None, None
+
+
+def _no_dropout(drop, op):
+    if drop > 0.0:
         raise NotImplementedError(
-            "causal_attention on the card needs the flash-attention kernel "
-            "(B1), which is not ported yet — see ROADMAP.md")
-    S, hd = q.shape[1], q.shape[-1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
-    keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    logits = torch.where(keep, logits, torch.full_like(logits, _NEG_INF))
-    probs = torch.softmax(logits.float(), dim=-1)
+            f"{op}: attention dropout in training is not ported yet — see "
+            "ROADMAP.md")
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, training=True):
+    """q/k/v ``[B, S, H, D]`` -> ``(out [B, S, H, D], None)``, paddle's
+    (result, softmax) pair; softmax scale ``1 / sqrt(D)``. Runs the B1
+    kernels forward and backward on the card, their plain versions on the
+    CPU."""
+    _no_dropout(dropout if training else 0.0, "flash_attention")
+    scale = 1.0 / query.shape[-1] ** 0.5
+    return _FlashAttention.apply(query, key, value, bool(causal), scale), \
+        None
+
+
+def _masked_attention(q, k, v, attn_mask, causal, scale):
+    """Plain attention with an explicit mask (bool: keep where True) or an
+    additive bias, broadcast to ``[B, H, Sq, Sk]``; softmax in f32."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if attn_mask.dtype == torch.bool:
+        logits = torch.where(attn_mask, logits, _NEG_INF)
+    else:
+        logits = logits + attn_mask.float()
+    if causal:
+        Sq, Sk = q.shape[1], k.shape[1]
+        keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(keep, logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True):
+    """paddle's ``scaled_dot_product_attention`` on ``[B, S, H, D]``.
+    Without a mask it is ``flash_attention`` (the B1 kernels); with
+    ``attn_mask`` (bool keep-mask or additive bias) it is plain tensor
+    code."""
+    _no_dropout(dropout_p if training else 0.0,
+                "scaled_dot_product_attention")
+    scale = 1.0 / query.shape[-1] ** 0.5
+    if attn_mask is None:
+        return _FlashAttention.apply(query, key, value, bool(is_causal),
+                                     scale)
+    return _masked_attention(query, key, value, attn_mask, is_causal, scale)
+
+
+def causal_attention(q, k, v):
+    """Causal ``softmax(q k^T / sqrt(d)) v`` on ``[B, S, H, D]``: the
+    no-cache forward, on the B1 kernels."""
+    return flash_attention(q, k, v, causal=True)[0]
 
 
 def quantized_kv_cache(batch, max_len, kv_heads, head_dim, device):

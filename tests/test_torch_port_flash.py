@@ -1,0 +1,200 @@
+"""paddle_tpu_torch flash attention (B1) against paddle_tpu.
+
+The port's kernel wrappers run their plain PyTorch versions on CPU
+tensors; they are held against paddle_tpu's blockwise Pallas kernel run
+as its own tests run it on the CPU (``flash_attention_lse`` /
+``flash_block_attention`` with ``interpret=True``, forward and
+``jax.vjp`` backward) and against ``_xla_attention``, the path paddle_tpu's
+``flash_attention`` takes off the TPU. Inputs are made with numpy from a
+seed and handed to both sides.
+
+Tolerances: out, lse and the grads atol 1e-5 in f32 (the softmax
+reassociation bound tests/test_kernels.py holds paddle_tpu's flash
+kernels to; values here are O(1)); the f64 ``gradcheck`` of the plain
+backward at torch's defaults (atol 1e-5, rtol 1e-3).
+"""
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu.kernels.flash_block import (flash_attention_lse,
+                                            flash_block_attention)
+from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.nn import functional as TF
+
+# the package re-exports a flash_attention function under the module's name
+jfa = importlib.import_module("paddle_tpu.nn.functional.flash_attention")
+
+ATOL = 1e-5
+
+
+def _qkv(B=2, H=2, Sq=128, Sk=None, D=64, seed=0):
+    rs = np.random.RandomState(seed)
+    Sk = Sq if Sk is None else Sk
+    return (rs.randn(B, H, Sq, D).astype(np.float32),
+            rs.randn(B, H, Sk, D).astype(np.float32),
+            rs.randn(B, H, Sk, D).astype(np.float32),
+            rs.randn(B, H, Sq, D).astype(np.float32))
+
+
+def _t(*xs):
+    return [torch.from_numpy(x.copy()) for x in xs]
+
+
+def _close(got, want, atol=ATOL):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("S", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_fwd_bwd_match_pallas_interpret(S, causal):
+    """Forward (out, lse) and backward (dq, dk, dv) of the plain versions
+    against the Pallas kernel in interpret mode and its custom_vjp."""
+    q, k, v, do = _qkv(Sq=S, seed=S + causal)
+    scale = 1.0 / 8.0
+
+    def f(q_, k_, v_):
+        return flash_attention_lse(q_, k_, v_, causal=causal,
+                                   sm_scale=scale, interpret=True)
+
+    @jax.jit
+    def fwd_bwd(q_, k_, v_, do_):
+        (o, lse), vjp = jax.vjp(f, q_, k_, v_)
+        return (o, lse) + vjp((do_, jnp.zeros_like(lse)))
+
+    jo, jl, jdq, jdk, jdv = fwd_bwd(q, k, v, do)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    out, lse = tfa.flash_attn_fwd(tq, tk, tv, causal, scale)
+    _close(out, jo)
+    _close(lse, jl)
+    dq, dk, dv = tfa.flash_attn_bwd(tq, tk, tv, out, lse, tdo, causal, scale)
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        _close(got, want)
+    # and the out of paddle_tpu's CPU dispatch (XLA attention, [B,S,H,D])
+    sw = lambda x: np.swapaxes(x, 1, 2)
+    xo = jfa._xla_attention(jnp.asarray(sw(q)), jnp.asarray(sw(k)),
+                            jnp.asarray(sw(v)), None, None, causal, scale)
+    _close(out, sw(np.asarray(xo)))
+
+
+def test_offsets_and_fully_masked_rows_match_flash_block():
+    """q at global position 0, k at 64: with causal masking query rows
+    0..63 see no key (out 0, lse -inf, zero grads), the rest see a
+    prefix; Sq != Sk exercises the masked tails."""
+    q, k, v, do = _qkv(Sq=128, Sk=192, seed=11)
+    scale = 0.125
+    q_off, k_off = 0, 64
+
+    @jax.jit
+    def fwd_bwd(q_, k_, v_, do_):
+        def f(a, b, c):
+            return flash_block_attention(a, b, c, q_off, k_off, True, scale,
+                                         64, 64, True)
+        (o, lse), vjp = jax.vjp(f, q_, k_, v_)
+        return (o, lse) + vjp((do_, jnp.zeros_like(lse)))
+
+    jo, jl, jdq, jdk, jdv = fwd_bwd(q, k, v, do)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    out, lse = tfa.flash_attn_fwd(tq, tk, tv, True, scale, q_off, k_off)
+    assert torch.all(lse[:, :, :64] == float("-inf"))
+    assert torch.all(out[:, :, :64] == 0)
+    _close(out, jo)
+    np.testing.assert_array_equal(np.isneginf(lse.numpy()),
+                                  np.isneginf(np.asarray(jl)))
+    fin = np.isfinite(np.asarray(jl))
+    _close(lse.numpy()[fin], np.asarray(jl)[fin])
+    dq, dk, dv = tfa.flash_attn_bwd(tq, tk, tv, out, lse, tdo, True, scale,
+                                    q_off, k_off)
+    assert torch.all(dq[:, :, :64] == 0)
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("causal,q_off,k_off", [(True, 0, 0), (False, 0, 0),
+                                                (True, 3, 5)])
+def test_plain_bwd_gradcheck_f64(causal, q_off, k_off):
+    """The plain backward is the gradient of the plain forward (f64,
+    torch.autograd.gradcheck), offsets and fully-masked rows included."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, n, 4, dtype=torch.float64, generator=g,
+                           requires_grad=True) for n in (6, 7, 7))
+
+    class Attn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q_, k_, v_):
+            o, lse = tfa.flash_attn_fwd_plain(q_, k_, v_, causal, 0.5,
+                                              q_off, k_off)
+            ctx.save_for_backward(q_, k_, v_, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            return tfa.flash_attn_bwd_plain(*ctx.saved_tensors, do, causal,
+                                            0.5, q_off, k_off)
+
+    assert torch.autograd.gradcheck(Attn.apply, (q, k, v))
+
+
+def _paddle_grads(fn, arrays, dout):
+    """Output and input grads of a paddle_tpu functional through its eager
+    tape: ``sum(fn(*tensors) * dout)``.backward()."""
+    ts = [paddle.to_tensor(a, stop_gradient=False) for a in arrays]
+    out = fn(*ts)
+    (out * paddle.to_tensor(dout)).sum().backward()
+    return np.asarray(out.numpy()), [np.asarray(t.grad.numpy()) for t in ts]
+
+
+@pytest.mark.parametrize("api", ["flash_attention", "sdpa"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_functionals_match_paddle_tpu(api, causal):
+    """``F.flash_attention`` / ``F.scaled_dot_product_attention`` on
+    paddle's [B, S, H, D] layout, forward and grads, against paddle_tpu's
+    functionals; the port's CPU path launches no kernel."""
+    rs = np.random.RandomState(3)
+    q, k, v, do = (rs.randn(2, 128, 2, 64).astype(np.float32)
+                   for _ in range(4))
+    if api == "flash_attention":
+        jfn = lambda a, b, c: jfa.flash_attention(a, b, c, causal=causal)[0]
+        tfn = lambda a, b, c: TF.flash_attention(a, b, c, causal=causal)[0]
+    else:
+        jfn = lambda a, b, c: jfa.scaled_dot_product_attention(
+            a, b, c, is_causal=causal)
+        tfn = lambda a, b, c: TF.scaled_dot_product_attention(
+            a, b, c, is_causal=causal)
+    want, wgrads = _paddle_grads(jfn, (q, k, v), do)
+    tfa.flash_attn_fwd.launches = tfa.flash_attn_bwd.launches = 0
+    ts = [torch.from_numpy(x.copy()).requires_grad_() for x in (q, k, v)]
+    out = tfn(*ts)
+    (out * torch.from_numpy(do)).sum().backward()
+    _close(out, want)
+    for t, w in zip(ts, wgrads):
+        _close(t.grad, w)
+    assert tfa.flash_attn_fwd.launches == tfa.flash_attn_bwd.launches == 0
+
+
+def test_sdpa_with_mask_matches_paddle_tpu():
+    """An explicit bool keep-mask (plain tensor code on both sides)."""
+    rs = np.random.RandomState(4)
+    q, k, v = (rs.randn(2, 16, 2, 8).astype(np.float32) for _ in range(3))
+    mask = rs.rand(2, 1, 16, 16) > 0.3
+    mask[..., 0] = True                          # every row keeps a key
+    want = jfa.scaled_dot_product_attention(
+        paddle.to_tensor(q), paddle.to_tensor(k), paddle.to_tensor(v),
+        attn_mask=paddle.to_tensor(mask))
+    got = TF.scaled_dot_product_attention(*_t(q, k, v),
+                                          attn_mask=torch.from_numpy(mask))
+    _close(got, np.asarray(want.numpy()))
+
+
+def test_attention_dropout_in_training_not_ported():
+    q, k, v, _ = _t(*_qkv(B=1, H=1, Sq=8, D=4))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TF.flash_attention(q, k, v, dropout=0.1, causal=True)
+    # evaluation ignores the rate, as paddle_tpu's does
+    TF.flash_attention(q, k, v, dropout=0.1, causal=True, training=False)

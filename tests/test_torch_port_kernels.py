@@ -24,10 +24,10 @@ from paddle_tpu.kernels.cache_write import fused_slot_write as jax_slot_write
 from paddle_tpu.kernels.mega_decode import mega_decode_step as jax_mega
 from paddle_tpu_torch.kernels import cache_write as cw
 from paddle_tpu_torch.kernels import mega_decode as md
-from paddle_tpu_torch.nn.functional import flash_attention as tfa
 
-# the package re-exports a flash_attention function under the module's name
+# both packages re-export a flash_attention function under the module's name
 jfa = importlib.import_module("paddle_tpu.nn.functional.flash_attention")
+tfa = importlib.import_module("paddle_tpu_torch.nn.functional.flash_attention")
 PORT_ROOT = pathlib.Path(__file__).resolve().parents[1] / "paddle_tpu_torch"
 
 
