@@ -15,18 +15,23 @@ failure:
    could take (bytes over 3.35 TB/s, operations over the peak for their
    type: 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32).
    Serving (gpt_125m: B=8, L=1024, 12 heads of 64): mega decode (B4), slot
-   write (B3). Training (gpt_125m at batch 8 x seq 1024): flash attention
-   forward and backward (B1) at B=8, H=12, S=1024, D=64; fused
-   cross-entropy forward and backward (B2) at N=8192, V=50304.
+   write (B3); paged write (B3 paged) into a [512, 16, 12, 64] pool at the
+   decode shape (n = 8 rows) and an admission shape (n = 512), bf16/f32
+   pages, int8 pages and their f32 scale plane, bit-exact. Training
+   (gpt_125m at batch 8 x seq 1024): flash attention forward and backward
+   (B1) at B=8, H=12, S=1024, D=64; fused cross-entropy forward and
+   backward (B2) at N=8192, V=50304.
 4. serving, bf16 cache: gpt_125m with seeded random weights behind
    ContinuousBatchingEngine(slots=8, max_len=1024, tick_tokens=8) and
    PredictorServer; 8 concurrent POST /generate. The mega-decode launch
-   count must equal ticks x tick_tokens x 12 layers.
+   count must equal ticks x tick_tokens x 12 layers. The same requests
+   run once more under torch.profiler (device busy share, top kernels).
 5. serving, f32 cache: 4 requests, tokens identical to the sequential
    greedy generate() of a CPU copy of the same weights (a differing token
    is accepted only where the CPU oracle's top-2 logit margin is < 1e-4).
 6. serving, int8 cache: 4 requests; slot-write launches must equal
-   ticks x tick_tokens x 12 layers x 4.
+   ticks x tick_tokens x 12 layers x 4. In phases 4-6 and 9-12 no plain
+   version of a serving kernel may run.
 7. training parity, f32: gpt_125m with f32 weights on the card and a CPU
    copy; one loss and backward at batch 2 x seq 128; loss and every
    parameter's grad against the CPU's.
@@ -34,7 +39,25 @@ failure:
    AdamW(lr=1e-4, multi_precision=True)) at batch 8 x seq 1024, 1 warm
    step then 5 on the same batch: finite, decreasing losses; the kernel
    launch counts equal their formulas and no plain version runs.
-9. summary: one {"kernels": [...]} line, the card line, and last the
+9. paged serving, bf16 pool: the same engine with paged=True,
+   page_size=16, prefix_cache=True (512 pages); 8 concurrent requests
+   share one 256-token prefix (16 pages) before distinct 16-200-token
+   suffixes. Prefix hits must be 7 with 7 x 256 tokens saved; after the
+   requests retire only the trie's pages stay in use and the allocator's
+   invariants hold; B3-paged launches must equal (admissions + ticks x
+   tick_tokens) x 12 layers x 2 and B4 must not run. The same requests
+   run once more under torch.profiler, prefix cache warm.
+10. paged serving, f32 pool, vs the sequential CPU oracle (phase 5's
+   rule): 4 requests, one repeating another's 128-token prompt, so its
+   admission copies the tail page and prefills one token.
+11. paged serving, int8 pool: B3-paged launches equal (admissions +
+   ticks x tick_tokens) x 12 x 4.
+12. n-gram speculative decoding (spec_k=4) on paged f32 pools: prompts
+   repeat a 32-token motif; tokens vs the CPU oracle (phase 5's rule),
+   acceptance rate > 0 and accepted tokens per verify tick > 1; B3-paged
+   launches equal (admissions + verify ticks + plain ticks x
+   tick_tokens) x 12 x 2.
+13. summary: one {"kernels": [...]} line, the card line, and last the
    {"ok": true, "device": {...}} line.
 """
 import json
@@ -53,6 +76,7 @@ BF16_OPS_PER_S = 989e12             # H100 SXM bf16 tensor cores, dense
 MAX_NEW = 32
 TICK = 8
 LAYERS = 12
+PAGE, NUM_PAGES = 16, 512           # the paged engine's default pool
 
 
 def fail(msg):
@@ -236,6 +260,88 @@ def check_slot_write(torch, cw, flush, rng_pos):
         print(f"  fused_slot_write {kind}: bit-exact; kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, index_put {lib_ms:.4f} ms, bound "
               f"{bound_ms:.6f} ms ({by}: {nbytes} B)", flush=True)
+    return rows
+
+
+def paged_indices(np, rng, n, NP, PS, mix):
+    """(phys, off, valid) int32 numpy for n rows into an [NP, PS, ...]
+    pool: valid rows at distinct (page, offset) pairs; with ``mix``, a
+    quarter of the rows are invalid and aimed where valid rows write or at
+    page 0, and three valid ones fall out of range (page NP, page -1,
+    offset PS)."""
+    flat = rng.choice(NP * PS, n, replace=False)
+    phys, off = (flat // PS).astype(np.int32), (flat % PS).astype(np.int32)
+    valid = np.ones(n, np.int32)
+    if mix:
+        bad = rng.choice(n, max(4, n // 4), replace=False)
+        valid[bad] = 0
+        src = rng.choice(np.setdiff1d(np.arange(n), bad), bad.shape[0])
+        phys[bad], off[bad] = phys[src], off[src]
+        phys[bad[::2]] = 0
+        oor = rng.choice(np.setdiff1d(np.arange(n), bad), 3, replace=False)
+        valid[oor] = 1
+        phys[oor[0]], phys[oor[1]], off[oor[2]] = NP, -1, PS
+    return phys, off, valid
+
+
+def check_paged_write(torch, np, cw, flush):
+    """Phase 3, B3 paged: kernel vs plain into the paged engine's pool
+    [512, 16, 12, 64] at the decode shape (n = 8) and an admission shape
+    (n = 512), bit-exact; times with every row valid (the main path's
+    case)."""
+    NP, PS, nkv, hd = NUM_PAGES, PAGE, NKV, HD
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rng = np.random.default_rng(7)
+
+    def make(kind, n):
+        if kind == "int8 pages":
+            c = torch.randint(-127, 128, (NP, PS, nkv, hd), device=dev,
+                              generator=gen, dtype=torch.int8)
+            r = torch.randint(-127, 128, (n, nkv, hd), device=dev,
+                              generator=gen, dtype=torch.int8)
+        elif kind == "f32 scale plane":
+            c = torch.rand(NP, PS, nkv, device=dev, generator=gen)
+            r = torch.rand(n, nkv, device=dev, generator=gen)
+        else:
+            dt = torch.bfloat16 if kind == "bf16 pages" else torch.float32
+            c = torch.randn(NP, PS, nkv, hd, device=dev, generator=gen).to(dt)
+            r = torch.randn(n, nkv, hd, device=dev, generator=gen).to(dt)
+        return c, r
+
+    rows = {}
+    for kind in ("bf16 pages", "int8 pages", "f32 scale plane", "f32 pages"):
+        for n, shape in ((B_SLICE, "decode"), (512, "admission")):
+            for mix in (True, False):
+                c, r = make(kind, n)
+                idx = [torch.from_numpy(a).to(dev)
+                       for a in paged_indices(np, rng, n, NP, PS, mix)]
+                c1, c2 = c.clone(), c.clone()
+                cw.fused_paged_write(c1, r, *idx)
+                cw.fused_paged_write_plain(c2, r, *idx)
+                torch.cuda.synchronize()
+                if not torch.equal(c1, c2) or torch.equal(c1, c):
+                    fail(f"fused_paged_write {kind} n={n} mix={mix}: pools "
+                         "differ from the plain version's (or nothing was "
+                         "written)")
+            c, r = make(kind, n)
+            phys, off, valid = (torch.from_numpy(a).to(dev) for a in
+                                paged_indices(np, rng, n, NP, PS, False))
+            ms = timed(torch, lambda: cw.fused_paged_write(c, r, phys, off,
+                                                           valid), flush)
+            plain_ms = timed(torch, lambda: cw.fused_paged_write_plain(
+                c, r, phys, off, valid), flush)
+            pv, ov = phys.long(), off.long()
+            lib_ms = timed(torch, lambda: c.index_put_((pv, ov), r), flush)
+            nbytes = 2 * r.numel() * r.element_size() + 3 * n * 4
+            bound_ms, by = bound(nbytes, 0)
+            rows[(kind, shape)] = dict(ms=ms, plain_ms=plain_ms,
+                                       library_ms=lib_ms, bound_ms=bound_ms,
+                                       bound_by=by, bytes=nbytes)
+            print(f"  fused_paged_write {kind} n={n} ({shape}): bit-exact; "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_put "
+                  f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}: "
+                  f"{nbytes} B)", flush=True)
     return rows
 
 
@@ -526,18 +632,19 @@ def _count_plain(mods):
     return counts, restore
 
 
-def profile_step(torch, step, ids):
-    """One more step under torch.profiler: device time by kernel (top 10)
-    and the device's busy share of the step's wall time. Prints "not
-    measured" when the profiler reports no device time. Only device
-    events count: a CPU op's device time repeats its kernels'."""
+def profile_window(torch, what, fn, top=10):
+    """Run ``fn`` once under torch.profiler: device time by kernel (the
+    ``top`` largest) and the device's busy share of the window's wall
+    time. Prints "not measured" when the profiler reports no device time.
+    Only device events count: a CPU op's device time repeats its
+    kernels'."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(ids, ids)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [(e.self_device_time_total, e.count, e.key)
@@ -546,14 +653,14 @@ def profile_step(torch, step, ids):
             and e.self_device_time_total > 0]
     busy_us = sum(r[0] for r in rows)
     if not rows:
-        print("  profiled step: device time not measured (the profiler "
+        print(f"  profiled {what}: device time not measured (the profiler "
               "reported none)", flush=True)
         return
-    print(f"  profiled step: wall {wall_us / 1e3:.1f} ms (profiler on), "
+    print(f"  profiled {what}: wall {wall_us / 1e3:.1f} ms (profiler on), "
           f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.0f}"
           " % of wall; one stream, so kernels do not overlap); top by "
           "device time:", flush=True)
-    for us, n, key in sorted(rows, reverse=True)[:10]:
+    for us, n, key in sorted(rows, reverse=True)[:top]:
         print(f"    {us / 1e3:8.3f} ms {100 * us / busy_us:5.1f} % x{n:<5d} "
               f"{key[:90]}", flush=True)
 
@@ -601,7 +708,7 @@ def train_step(torch, pkg, steps=5):
     if not vals[-1] < min(vals[0], vals[1]):
         fail(f"train step: the last loss is not below the first: {vals}")
     ms = wall / steps * 1e3
-    profile_step(torch, step, ids)
+    profile_window(torch, "step", lambda: step(ids, ids))
     print(f"  losses {['%.4f' % x for x in vals]} (warm step first); "
           f"{ms:.1f} ms/step, {B_SLICE * L_SLICE / (ms / 1e3):.0f} tokens/s "
           f"(smoke number, {steps} steps); launches {counts}, plain calls "
@@ -636,14 +743,23 @@ def post_all(url, prompts, max_new):
     return results
 
 
-def serve(torch, pkg, model, cache_dtype, prompts, slots=8):
+def serve(torch, pkg, model, cache_dtype, prompts, slots=8, profile=False,
+          **engine_kw):
     """Serve ``prompts`` through engine + HTTP server with the launch
-    counters zeroed just before; returns (token lists, engine ticks,
-    launch counts, wall seconds)."""
+    counters zeroed just before, and every plain version of a serving
+    kernel counted; returns a dict of the token lists, the engine's stats
+    just after the requests, the launch counts and the wall seconds.
+    Fails on a malformed reply or a plain call. With ``profile``, serves
+    the same prompts once more under torch.profiler after reading the
+    counts (a paged engine's prefix cache is warm by then)."""
     md, cw = pkg["md"], pkg["cw"]
     eng = pkg["Engine"](model, slots=slots, max_len=L_SLICE,
-                        cache_dtype=cache_dtype, tick_tokens=TICK)
+                        cache_dtype=cache_dtype, tick_tokens=TICK,
+                        **engine_kw)
     srv = pkg["Server"](eng, host="127.0.0.1", port=0, deadline_s=600).start()
+    what = f"{cache_dtype}{' paged' if eng.paged else ''}" + (
+        " speculative" if engine_kw.get("speculative") else "")
+    plain, restore = _count_plain([md, cw])
     try:
         url = f"http://{srv.host}:{srv.port}"
         with urllib.request.urlopen(url + "/health", timeout=60) as r:
@@ -651,31 +767,99 @@ def serve(torch, pkg, model, cache_dtype, prompts, slots=8):
                 fail("/health")
         md.mega_decode_step.launches = 0
         cw.fused_slot_write.launches = 0
+        cw.fused_paged_write.launches = 0
         t0 = time.perf_counter()
         res = post_all(url, prompts, MAX_NEW)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"mega_decode_step": md.mega_decode_step.launches,
-                  "fused_slot_write": cw.fused_slot_write.launches}
-        ticks = eng.ticks
+                  "fused_slot_write": cw.fused_slot_write.launches,
+                  "fused_paged_write": cw.fused_paged_write.launches}
+        stats = eng.stats()
+        if eng.paged:
+            eng._allocator.check()
+        if profile:
+            profile_window(torch, f"{what} serving, the same {len(prompts)} "
+                           "requests again", lambda: post_all(url, prompts,
+                                                              MAX_NEW), top=8)
     finally:
+        restore()
         srv.stop()
         eng.stop()
     vocab = model.cfg.vocab_size
     toks = []
     for (code, body), p in zip(res, prompts):
         if code != 200:
-            fail(f"/generate ({cache_dtype}) -> {code} {body}")
+            fail(f"/generate ({what}) -> {code} {body}")
         t = body["tokens"]
         if (len(t) != len(p) + MAX_NEW or t[:len(p)] != [int(x) for x in p]
                 or body["new_tokens"] != MAX_NEW
                 or not all(0 <= x < vocab for x in t)):
-            fail(f"/generate ({cache_dtype}) body malformed: {body}")
+            fail(f"/generate ({what}) body malformed: {body}")
         toks.append(t)
-    torch.cuda.synchronize()
-    print(f"  {cache_dtype}: {len(prompts)} requests x {MAX_NEW} tokens in "
+    if any(plain.values()):
+        fail(f"{what}: plain versions ran on the card: {plain}")
+    print(f"  {what}: {len(prompts)} requests x {MAX_NEW} tokens in "
           f"{wall:.3f} s ({len(prompts) * MAX_NEW / wall:.1f} new tok/s "
-          f"incl. prefill), {ticks} ticks, launches {counts}", flush=True)
-    return toks, ticks, counts, wall
+          f"incl. prefill), {stats['ticks']} ticks, launches {counts}",
+          flush=True)
+    return {"toks": toks, "stats": stats, "ticks": stats["ticks"],
+            "counts": counts, "wall": wall}
+
+
+def check_oracle(torch, pkg, oracle, prompts, toks, what):
+    """Phase 5's rule: each request's tokens equal the sequential greedy
+    generate() of the CPU copy, except where the CPU's top-2 logit margin
+    at the first differing token is < 1e-4. Identical prompts are checked
+    once."""
+    gen = {}
+    for p, got in zip(prompts, toks):
+        key = tuple(int(x) for x in p)
+        if key not in gen:
+            gen[key] = pkg["generate"](oracle, p, MAX_NEW,
+                                       cache_dtype="float32")[0]
+        want_t = gen[key]
+        diff = [i for i, (a, b) in enumerate(zip(got, want_t.tolist()))
+                if a != b]
+        if not diff:
+            continue
+        i = diff[0]
+        with torch.no_grad():
+            lg = oracle(torch.from_numpy(want_t[None, :i]))[0, -1]
+        top2 = torch.topk(lg, 2).values
+        margin = float(top2[0] - top2[1])
+        print(f"  token {i} differs (card {got[i]}, cpu {want_t[i]}); CPU "
+              f"top-2 margin {margin:.3e}", flush=True)
+        if margin >= 1e-4:
+            fail(f"{what} tokens differ from the CPU oracle")
+    print(f"  {what} tokens match the sequential CPU oracle", flush=True)
+
+
+def paged_launch_check(run, halves_per_layer):
+    """B3-paged launches must equal the forwards the engine ran (one per
+    admission, one per verify tick, tick_tokens per plain tick) x 12
+    layers x the pool leaves written per layer; B4 and B3 slot never."""
+    st = run["stats"]
+    spec = st.get("spec_ticks", 0)
+    forwards = st["admitted"] + spec + (st["ticks"] - spec) * TICK
+    want = forwards * LAYERS * halves_per_layer
+    c = run["counts"]
+    if (c["fused_paged_write"] != want or c["mega_decode_step"]
+            or c["fused_slot_write"]):
+        fail(f"paged launches {c} != paged {want} (= ({st['admitted']} "
+             f"admissions + {spec} verify ticks + {st['ticks'] - spec} "
+             f"ticks x {TICK}) x {LAYERS} x {halves_per_layer}), B4 0, "
+             "slot 0")
+    return want
+
+
+def check_pool(run):
+    """After every request retired: only the trie's pages are in use."""
+    st = run["stats"]
+    if st["active"] or st["pages_used"] != st["pages_cached_prefix"]:
+        fail(f"paged pool after the requests: active {st['active']}, "
+             f"pages_used {st['pages_used']} != pages_cached_prefix "
+             f"{st['pages_cached_prefix']}")
 
 
 def main():
@@ -699,6 +883,7 @@ def main():
     except ImportError as e:
         fail(f"cannot import paddle_tpu_torch (run from the repo root): {e}")
     pkg = {"md": md, "cw": cw, "fa": fa, "ce": ce, "np": np,
+           "generate": generate,
            "Engine": ContinuousBatchingEngine, "Server": PredictorServer,
            "GPT": GPTForCausalLM, "gpt_125m": gpt_125m, "AdamW": AdamW,
            "TrainStep": TrainStep, "load": load_paddle_tpu_params}
@@ -730,6 +915,7 @@ def main():
                                             B_SLICE)]
     b4_errs, b4_rows = check_mega_decode(torch, md, flush, rng_pos)
     b3_rows = check_slot_write(torch, cw, flush, rng_pos)
+    b3p_rows = check_paged_write(torch, np, cw, flush)
     b1_errs, b1_rows = check_flash(torch, fa, flush)
     b2_errs, b2_rows = check_ce(torch, ce, flush)
     del flush
@@ -740,51 +926,40 @@ def main():
     vocab = model.cfg.vocab_size
     prompts = [rng.integers(0, vocab, int(n))
                for n in rng.integers(16, 301, 8)]
-    _, ticks, counts, _ = serve(torch, pkg, model, "bfloat16", prompts)
+    run4 = serve(torch, pkg, model, "bfloat16", prompts, profile=True)
+    ticks, counts = run4["ticks"], run4["counts"]
     want = ticks * TICK * LAYERS
-    if counts["mega_decode_step"] != want or counts["fused_slot_write"]:
+    if (counts["mega_decode_step"] != want or counts["fused_slot_write"]
+            or counts["fused_paged_write"]):
         fail(f"bf16 launches {counts} != mega {want} (= {ticks} ticks x "
-             f"{TICK} x {LAYERS}), slot 0")
+             f"{TICK} x {LAYERS}), slot 0, paged 0")
     b4_launches = counts["mega_decode_step"]
 
     print("phase 5: serving, f32 cache vs the sequential CPU oracle",
           flush=True)
     prompts5 = [rng.integers(0, vocab, int(n))
                 for n in rng.integers(16, 301, 4)]
-    toks5, ticks, counts, _ = serve(torch, pkg, model, "float32", prompts5,
-                                    slots=4)
-    if counts["mega_decode_step"] != ticks * TICK * LAYERS:
-        fail(f"f32 launches {counts} != {ticks} x {TICK} x {LAYERS}")
+    run5 = serve(torch, pkg, model, "float32", prompts5, slots=4)
+    if run5["counts"]["mega_decode_step"] != run5["ticks"] * TICK * LAYERS:
+        fail(f"f32 launches {run5['counts']} != {run5['ticks']} x {TICK} x "
+             f"{LAYERS}")
     oracle = GPTForCausalLM(gpt_125m(), device="cpu", seed=1)
     load_paddle_tpu_params(oracle, {n: p.detach().cpu().numpy()
                                     for n, p in model.named_parameters()})
-    for p, got in zip(prompts5, toks5):
-        want_t = generate(oracle, p, MAX_NEW, cache_dtype="float32")[0]
-        diff = [i for i, (a, b) in enumerate(zip(got, want_t.tolist()))
-                if a != b]
-        if not diff:
-            continue
-        i = diff[0]
-        with torch.no_grad():
-            lg = oracle(torch.from_numpy(want_t[None, :i]))[0, -1]
-        top2 = torch.topk(lg, 2).values
-        margin = float(top2[0] - top2[1])
-        print(f"  token {i} differs (card {got[i]}, cpu {want_t[i]}); CPU "
-              f"top-2 margin {margin:.3e}", flush=True)
-        if margin >= 1e-4:
-            fail("f32 serving tokens differ from the CPU oracle")
-    print("  f32 serving tokens match the sequential CPU oracle", flush=True)
+    check_oracle(torch, pkg, oracle, prompts5, run5["toks"], "f32 serving")
 
     print("phase 6: serving, int8 cache", flush=True)
     prompts6 = [rng.integers(0, vocab, int(n))
                 for n in rng.integers(16, 301, 4)]
-    _, ticks, counts, _ = serve(torch, pkg, model, "int8", prompts6)
+    run6 = serve(torch, pkg, model, "int8", prompts6)
+    ticks, counts = run6["ticks"], run6["counts"]
     want = ticks * TICK * LAYERS * 4
-    if counts["fused_slot_write"] != want or counts["mega_decode_step"]:
+    if (counts["fused_slot_write"] != want or counts["mega_decode_step"]
+            or counts["fused_paged_write"]):
         fail(f"int8 launches {counts} != slot {want} (= {ticks} x {TICK} x "
-             f"{LAYERS} x 4), mega 0")
+             f"{LAYERS} x 4), mega 0, paged 0")
     b3_launches = counts["fused_slot_write"]
-    del model, oracle
+    del model
 
     print("phase 7: training parity, f32 gpt_125m on the card vs the CPU",
           flush=True)
@@ -794,10 +969,82 @@ def main():
     print("phase 8: training step, bf16 gpt_125m, AdamW multi_precision, "
           f"batch {B_SLICE} x seq {L_SLICE}", flush=True)
     train_counts = train_step(torch, pkg)
+    torch.cuda.empty_cache()
 
-    print("phase 9: summary", flush=True)
+    model = GPTForCausalLM(gpt_125m(), seed=0)        # phase 4's weights
+    paged = dict(paged=True, page_size=PAGE, prefix_cache=True)
+    print("phase 9: paged serving gpt_125m, bf16 pool, shared 256-token "
+          "prefix", flush=True)
+    prefix = rng.integers(0, vocab, 16 * PAGE)
+    prompts9 = [np.concatenate([prefix, rng.integers(0, vocab, int(n))])
+                for n in rng.integers(16, 201, 8)]
+    run9 = serve(torch, pkg, model, "bfloat16", prompts9, profile=True,
+                 **paged)
+    st = run9["stats"]
+    if st["pages_total"] != NUM_PAGES:
+        fail(f"paged pool holds {st['pages_total']} pages, not {NUM_PAGES}")
+    if (st["prefix_hits"], st["prefix_misses"],
+            st["prefix_tokens_saved"]) != (7, 1, 7 * 16 * PAGE):
+        fail(f"prefix hits/misses/saved {st['prefix_hits']}/"
+             f"{st['prefix_misses']}/{st['prefix_tokens_saved']} != 7/1/"
+             f"{7 * 16 * PAGE}")
+    check_pool(run9)
+    b3p_launches = paged_launch_check(run9, 2)
+    print(f"  prefix hits {st['prefix_hits']}, tokens saved "
+          f"{st['prefix_tokens_saved']}, prefilled {st['prefill_tokens']}; "
+          f"pages in use after {st['pages_used']} (= cached prefix), "
+          f"allocator clean; slot phase 4 wall {run4['wall']:.3f} s, paged "
+          f"{run9['wall']:.3f} s", flush=True)
+
+    print("phase 10: paged serving, f32 pool vs the sequential CPU oracle",
+          flush=True)
+    a = rng.integers(0, vocab, 8 * PAGE)
+    prompts10 = [a] + [rng.integers(0, vocab, int(n))
+                       for n in rng.integers(16, 301, 2)] + [a.copy()]
+    run10 = serve(torch, pkg, model, "float32", prompts10, slots=4, **paged)
+    st = run10["stats"]
+    want_prefill = sum(len(p) for p in prompts10[:3]) + 1
+    if st["prefix_hits"] != 1 or st["prefill_tokens"] != want_prefill:
+        fail(f"COW admission: prefix hits {st['prefix_hits']} != 1 or "
+             f"prefilled {st['prefill_tokens']} != {want_prefill}")
+    check_pool(run10)
+    paged_launch_check(run10, 2)
+    check_oracle(torch, pkg, oracle, prompts10, run10["toks"],
+                 "f32 paged serving")
+
+    print("phase 11: paged serving, int8 pool", flush=True)
+    prompts11 = [rng.integers(0, vocab, int(n))
+                 for n in rng.integers(16, 301, 4)]
+    run11 = serve(torch, pkg, model, "int8", prompts11, **paged)
+    check_pool(run11)
+    paged_launch_check(run11, 4)
+
+    print("phase 12: n-gram speculative decoding, spec_k=4, paged f32 pool",
+          flush=True)
+    prompts12 = [np.tile(rng.integers(0, vocab, 32), int(r))
+                 for r in rng.integers(3, 6, 4)]
+    run12 = serve(torch, pkg, model, "float32", prompts12, slots=4,
+                  speculative="ngram", spec_k=4, **paged)
+    st = run12["stats"]
+    check_pool(run12)
+    paged_launch_check(run12, 2)
+    if not (st["spec_ticks"] > 0 and st["acceptance_rate"] > 0
+            and st["accepted_tokens_per_tick"] > 1):
+        fail(f"speculative: spec ticks {st['spec_ticks']}, acceptance "
+             f"{st['acceptance_rate']}, accepted tokens per tick "
+             f"{st['accepted_tokens_per_tick']}")
+    print(f"  {st['spec_ticks']} verify ticks of {st['ticks']}; drafted "
+          f"{st['tokens_drafted']}, accepted {st['tokens_accepted']} "
+          f"(rate {st['acceptance_rate']}), {st['accepted_tokens_per_tick']}"
+          " tokens per slot per verify tick", flush=True)
+    check_oracle(torch, pkg, oracle, prompts12, run12["toks"],
+                 "speculative paged serving")
+    del model, oracle
+
+    print("phase 13: summary", flush=True)
     main_b4 = b4_rows[("bf16", "serving-like pos")]
     main_b3 = b3_rows["int8 data"]
+    main_b3p = b3p_rows[("bf16 pages", "decode")]
     kernels = [
         {"name": "mega_decode_step", "route": "cuda",
          "source": "paddle_tpu_torch/kernels/csrc/mega_decode.cu",
@@ -814,6 +1061,13 @@ def main():
          "ms": main_b3["ms"], "plain_ms": main_b3["plain_ms"],
          "bound_ms": main_b3["bound_ms"], "bound_by": main_b3["bound_by"],
          "library_ms": main_b3["library_ms"]},
+        {"name": "fused_paged_write", "route": "cuda",
+         "source": "paddle_tpu_torch/kernels/csrc/cache_write.cu",
+         "replaces": "paddle_tpu/kernels/cache_write.py:171",
+         "launches": b3p_launches, "max_abs_err": 0.0,
+         "ms": main_b3p["ms"], "plain_ms": main_b3p["plain_ms"],
+         "bound_ms": main_b3p["bound_ms"], "bound_by": main_b3p["bound_by"],
+         "library_ms": main_b3p["library_ms"]},
     ]
     b1_main = b1_errs[(torch.bfloat16, True, 0)]
     b2_main = b2_errs[(8192, torch.bfloat16, None)]

@@ -1,6 +1,6 @@
-from .engine import (ContinuousBatchingEngine, EngineOverloaded,
-                     RequestCancelled)
+from .engine import (CacheExhausted, ContinuousBatchingEngine,
+                     EngineOverloaded, RequestCancelled)
 from .serve import PredictorServer
 
-__all__ = ["ContinuousBatchingEngine", "EngineOverloaded",
+__all__ = ["ContinuousBatchingEngine", "EngineOverloaded", "CacheExhausted",
            "RequestCancelled", "PredictorServer"]

@@ -5,14 +5,21 @@ Endpoints:
   GET  /health    -> {"status": "ok"} (liveness)
   GET  /healthz   -> readiness: 200 while the engine can take work, 503
                      with a reason when its queue is saturated or it broke;
-                     the body carries slot occupancy and queue depth
+                     the body carries slot occupancy and queue depth, and
+                     the page-pool and prefix-cache fields (paged engines)
+                     and the speculative counters (speculative engines)
   POST /generate  -> {"input_ids": [...], "max_new_tokens": n,
                       "eos_token_id": opt} -> {"tokens": [...],
                       "prompt_len": P, "new_tokens": n,
                       "tokens_generated": k}
+  POST /prewarm   -> {"input_ids": [...]} -> {"prewarmed": paged,
+                      "prompt_len": P, "paged": paged}: a one-token
+                      generate through normal admission, result dropped,
+                      so a paged engine's prefix cache holds the prompt
 
 Errors keep paddle_tpu's contract: 400 for a malformed request, 503 with
-``overloaded`` (engine queue full), ``deadline_exceeded`` (the request
+``overloaded`` (engine queue full), ``cache_exhausted`` (queue full while
+the KV page pool binds), ``deadline_exceeded`` (the request
 outlived ``deadline_s``; it is cancelled) or ``backend_unavailable``
 (engine broken or stopped), every 503 with a ``Retry-After`` header and a
 ``retry_after_s`` body field; 409 ``cancelled`` with the partial result.
@@ -32,13 +39,15 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..framework.env import float_env
-from .engine import EngineOverloaded, RequestCancelled
+from .engine import CacheExhausted, EngineOverloaded, RequestCancelled
 
 __all__ = ["PredictorServer", "RETRY_AFTER_S"]
 
 # advisory client backoff per 503 reason (seconds)
 RETRY_AFTER_S = {
     "overloaded": 1.0,
+    # the paged pool binds: clears when a request retires and frees pages
+    "cache_exhausted": 2.0,
     "deadline_exceeded": 2.0,
     "backend_unavailable": 2.0,
     "unready": 1.0,
@@ -62,6 +71,15 @@ def send_json(handler, code, obj, retry_after=None):
     handler.send_header("Content-Length", str(len(body)))
     handler.end_headers()
     handler.wfile.write(body)
+
+
+def shed_body(e):
+    """The 503 body of a shed submit: the engine's reason and queue depth,
+    and the pool's free and total pages when the pool binds."""
+    body = {"error": e.reason, "queue_depth": e.queue_depth}
+    if isinstance(e, CacheExhausted):
+        body.update(free_pages=e.free_pages, num_pages=e.num_pages)
+    return body
 
 
 class PredictorServer:
@@ -88,6 +106,17 @@ class PredictorServer:
                 "engine": {k: st[k] for k in ("slots", "active", "free",
                                               "queued", "max_queue",
                                               "ticks")}}
+        if st.get("paged"):
+            body["engine"].update({k: st[k] for k in (
+                "paged", "page_size", "pages_total", "pages_free",
+                "pages_used", "page_utilization", "prefix_hits",
+                "prefix_misses", "prefix_hit_rate",
+                "prefix_fingerprints")})
+        if st.get("speculative"):
+            body["engine"].update({k: st[k] for k in (
+                "speculative", "spec_k", "spec_ticks", "tokens_drafted",
+                "tokens_accepted", "tokens_rejected", "acceptance_rate",
+                "accepted_tokens_per_tick")})
         if self.engine.broken is not None:
             body.update(status="unready", reason="engine broken")
             return False, body
@@ -126,7 +155,46 @@ class PredictorServer:
                     return None
                 return payload if isinstance(payload, dict) else None
 
+            def _submit(self, payload, max_new_tokens=None, rid=None):
+                """``engine.submit`` of the body's request, or None after
+                the error reply: 400 for a bad request, 503 for a shed or
+                a broken engine."""
+                try:
+                    n = (int(payload.get("max_new_tokens", 32))
+                         if max_new_tokens is None else max_new_tokens)
+                    return server.engine.submit(
+                        payload["input_ids"], n,
+                        payload.get("eos_token_id"), request_id=rid)
+                except EngineOverloaded as e:
+                    self._send(503, shed_body(e))
+                except (ValueError, KeyError, TypeError) as e:
+                    self._send(400, {"error": str(e)})
+                except RuntimeError as e:     # broken or stopped engine
+                    self._send(503, {"error": f"backend_unavailable: {e}"})
+                return None
+
+            def _prewarm(self):
+                payload = self._read_json_body()
+                if payload is None or "input_ids" not in payload:
+                    self._send(400, {"error": "input_ids required"})
+                    return
+                paged = bool(server.engine.paged)
+                fut = self._submit(payload, max_new_tokens=1)
+                if fut is None:
+                    return
+                try:
+                    fut.result(timeout=server.deadline_s)
+                except Exception as e:   # noqa: BLE001 — best effort
+                    self._send(503, {"error": f"prewarm_failed: {e}"})
+                    return
+                n = len(np.asarray(payload["input_ids"]).reshape(-1))
+                self._send(200, {"prewarmed": paged, "prompt_len": n,
+                                 "paged": paged})
+
             def do_POST(self):
+                if self.path == "/prewarm":
+                    self._prewarm()
+                    return
                 if self.path != "/generate":
                     self._read_json_body()
                     self._send(404, {"error": f"no route {self.path}"})
@@ -136,22 +204,10 @@ class PredictorServer:
                 if payload is None:
                     self._send(400, {"error": "bad body"})
                     return
-                try:
-                    ids = payload["input_ids"]
-                    fut = server.engine.submit(
-                        ids, int(payload.get("max_new_tokens", 32)),
-                        payload.get("eos_token_id"), request_id=rid)
-                except EngineOverloaded as e:
-                    self._send(503, {"error": e.reason,
-                                     "queue_depth": e.queue_depth})
+                fut = self._submit(payload, rid=rid)
+                if fut is None:
                     return
-                except (ValueError, KeyError, TypeError) as e:
-                    self._send(400, {"error": str(e)})
-                    return
-                except RuntimeError as e:     # broken or stopped engine
-                    self._send(503, {"error": f"backend_unavailable: {e}"})
-                    return
-                prompt_len = len(np.asarray(ids).reshape(-1))
+                prompt_len = len(np.asarray(payload["input_ids"]).reshape(-1))
                 try:
                     out = fut.result(timeout=server.deadline_s)
                 except FutureTimeout:

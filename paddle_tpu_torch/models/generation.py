@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["generate", "new_kv_caches"]
+__all__ = ["generate", "new_kv_caches", "new_paged_kv_caches"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -39,6 +39,25 @@ def new_kv_caches(num_layers, batch, max_len, kv_heads, head_dim, dtype,
             return torch.zeros((batch, max_len, kv_heads, head_dim),
                                dtype=_DTYPES[str(dtype)], device=device)
     return [(one(), one()) for _ in range(num_layers)]
+
+
+def new_paged_kv_caches(num_layers, num_pages, page_size, kv_heads,
+                        head_dim, dtype, device):
+    """Per-layer [(k_pool, v_pool), ...] page pools for the paged serving
+    engine (``paged_kv_cache`` dicts [num_pages, page_size, kv_heads,
+    head_dim] of zeros on ``device``; dtype "int8" gives the quantised
+    pool). A physical page id names that page in every layer's pool, so
+    one block table, attached per call by the engine, indexes them all."""
+    from ..nn.functional.flash_attention import paged_kv_cache
+    if dtype != "int8" and str(dtype) not in _DTYPES:
+        raise ValueError(f"cache dtype {dtype!r}: one of "
+                         f"{sorted(_DTYPES) + ['int8']}")
+    dt = "int8" if dtype == "int8" else _DTYPES[str(dtype)]
+    return [(paged_kv_cache(num_pages, page_size, kv_heads, head_dim, dt,
+                            device),
+             paged_kv_cache(num_pages, page_size, kv_heads, head_dim, dt,
+                            device))
+            for _ in range(num_layers)]
 
 
 def _select_token(logits):

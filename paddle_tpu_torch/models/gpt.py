@@ -7,7 +7,8 @@ name with no transpose: Linear weights stay ``[in, out]`` and apply as
 the LM head is tied to the word embedding.
 
 Ported: the cached forward (prefill and per-row decode, the serving
-path), the no-cache forward on the flash-attention kernels (training and
+path, over slot caches or the paged pools of ``new_paged_cache``), the
+no-cache forward on the flash-attention kernels (training and
 evaluation), ``loss_fn`` / ``make_loss_fn`` on the fused cross-entropy
 kernels, and ``train()`` / ``bfloat16()`` (torch's own, which cast every
 float parameter as paddle_tpu's ``Layer.bfloat16()`` does). Not yet:
@@ -23,7 +24,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn import functional as F
-from .generation import new_kv_caches
+from .generation import new_kv_caches, new_paged_kv_caches
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
            "gpt_125m", "gpt_1p3b"]
@@ -287,6 +288,17 @@ class GPTForCausalLM(nn.Module):
         return new_kv_caches(cfg.num_layers, batch_size, max_len,
                              cfg.num_heads, cfg.hidden_size // cfg.num_heads,
                              dtype, self.device)
+
+    def new_paged_cache(self, num_pages: int, page_size: int,
+                        dtype="bfloat16"):
+        """Per-layer (k, v) page pools [num_pages, page_size, nh, hd] for
+        the paged serving engine on the model's device; block tables are
+        engine state, not part of them."""
+        cfg = self.cfg
+        return new_paged_kv_caches(cfg.num_layers, num_pages, page_size,
+                                   cfg.num_heads,
+                                   cfg.hidden_size // cfg.num_heads, dtype,
+                                   self.device)
 
     def generate(self, input_ids, max_new_tokens=32, **kw):
         from .generation import generate

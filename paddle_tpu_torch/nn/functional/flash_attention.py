@@ -17,14 +17,23 @@ paddle_tpu. Attention dropout in training is not ported (ROADMAP.md).
 
 Cache half: unlike the JAX functions, which return new caches, every
 function here writes the caches IN PLACE and returns the same objects.
+Paged caches are dicts ``{"pages": [NP, PS, nkv, hd] (bf16/f32, or int8
+with "scale": f32 [NP, PS, nkv]), "bt": [B, PM] int block table}`` plus
+the optional write gates ``"live"`` ([B] bool: rows allowed to write) and
+``"wlen"`` (only the first wlen of the S incoming rows write), which the
+engine attaches per call (``paged_kv_cache`` allocates the pool).
 The S=1 per-row slot-decode step (the engine's decode tick) goes through
 the hand-written kernels: ``mega_decode_step`` for tensor caches,
 ``fused_slot_write`` inside ``_fused_decode_attention`` for int8 caches.
 These are the paths paddle_tpu takes with ``PADDLE_TPU_MEGA_DECODE`` and
 ``PADDLE_TPU_FUSED_CACHE_WRITE`` on; the port has no unfused decode chain
 to fall back on. Prefill (scalar position) and multi-token per-row writes
-run as plain tensor code, as they run as XLA code in paddle_tpu. Paged
-caches are not ported yet (ROADMAP.md).
+run as plain tensor code, as they run as XLA code in paddle_tpu. Every
+write into a paged pool goes through the ``fused_paged_write`` kernel (B3
+paged, as paddle_tpu with ``PADDLE_TPU_FUSED_CACHE_WRITE``); the paged read
+gathers pages through the block table and the attention is the general
+plain body, as both are XLA code there (the mega step is gated off for
+paged dicts in both packages).
 """
 from __future__ import annotations
 
@@ -32,12 +41,13 @@ import math
 
 import torch
 
-from ...kernels.cache_write import fused_slot_write
+from ...kernels.cache_write import fused_paged_write, fused_slot_write
 from ...kernels.flash_attention import flash_attn_bwd, flash_attn_fwd
 from ...kernels.mega_decode import mega_decode_step
 
 __all__ = ["flash_attention", "scaled_dot_product_attention",
-           "causal_attention", "quantized_kv_cache", "cached_attention"]
+           "causal_attention", "quantized_kv_cache", "paged_kv_cache",
+           "cached_attention"]
 
 _NEG_INF = -1e30
 
@@ -141,14 +151,82 @@ def _quant_rows(x):
     return q.to(torch.int8), scale
 
 
+def paged_kv_cache(num_pages, page_size, kv_heads, head_dim, dtype,
+                   device):
+    """One paged KV-cache half: the page pool only (block tables are
+    per-request engine state, attached per call). ``dtype`` "int8" gives
+    int8 pages with an f32 scale per (page, offset, head); else a torch
+    float dtype. Zero-filled: unallocated table entries read page 0, and
+    the causal mask turns its finite contents into exact zeros, which it
+    could not do for NaN from uninitialised memory."""
+    shape = (num_pages, page_size, kv_heads, head_dim)
+    if dtype == "int8":
+        return {"pages": torch.zeros(shape, dtype=torch.int8, device=device),
+                "scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                     device=device)}
+    return {"pages": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def _is_paged(cache) -> bool:
     return isinstance(cache, dict) and "bt" in cache
 
 
-def _reject_paged(cache):
-    if _is_paged(cache):
-        raise NotImplementedError(
-            "paged KV caches are not ported yet — see ROADMAP.md")
+def _paged_cache_write(cache, rows, pos):
+    """Write [B, S, nkv, hd] rows into a paged cache in place at global
+    positions [pos, pos+S) (scalar pos) or [pos[b], pos[b]+S) per row:
+    each lands at (page bt[b, t // PS], offset t % PS). The write gate
+    folds ``t < PM * PS`` (never past the table), ``live`` and ``wlen``
+    into ``valid``; the page slot is clipped into the table, as
+    paddle_tpu's ``_paged_cache_write``. One ``fused_paged_write`` launch
+    per pool leaf: one for bf16/f32 pools, two (pages, scale) for int8."""
+    pages, bt = cache["pages"], cache["bt"].long()
+    PS = pages.shape[1]
+    B, S = rows.shape[0], rows.shape[1]
+    PM = bt.shape[1]
+    dev = pages.device
+    s_ids = torch.arange(S, device=dev)
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        base = pos.to(torch.int64)[:, None]
+    else:
+        base = torch.full((B, 1), int(pos), dtype=torch.int64, device=dev)
+    t = base + s_ids[None, :]                                # [B, S]
+    valid = t < PM * PS
+    if "live" in cache:
+        valid = valid & cache["live"][:, None]
+    if "wlen" in cache:
+        valid = valid & (s_ids[None, :] < cache["wlen"])
+    page_slot = torch.clamp(torch.div(t, PS, rounding_mode="floor"), 0,
+                            PM - 1)
+    n = B * S
+    phys = torch.gather(bt, 1, page_slot).reshape(n).to(torch.int32)
+    off = torch.remainder(t, PS).reshape(n).to(torch.int32)
+    valid = valid.reshape(n).to(torch.int32)
+    if "scale" in cache:
+        qrows, scale = _quant_rows(rows)
+        fused_paged_write(pages, qrows.reshape((n,) + qrows.shape[2:]),
+                          phys, off, valid)
+        fused_paged_write(cache["scale"],
+                          scale.reshape((n,) + scale.shape[2:]), phys, off,
+                          valid)
+        return cache
+    fused_paged_write(pages, rows.to(pages.dtype).reshape(
+        (n,) + rows.shape[2:]).contiguous(), phys, off, valid)
+    return cache
+
+
+def _paged_cache_read(cache):
+    """Gather a paged cache into the [B, PM * PS, nkv, hd] view through
+    its block table. Unallocated entries gather page 0, finite garbage the
+    causal mask zeroes exactly. int8 pools dequantise after the gather."""
+    bt = cache["bt"].long()
+    B, PM = bt.shape
+    g = cache["pages"][bt]                           # [B, PM, PS, nkv, hd]
+    g = g.reshape((B, PM * g.shape[2]) + tuple(g.shape[3:]))
+    if "scale" in cache:
+        sc = cache["scale"][bt]                      # [B, PM, PS, nkv]
+        sc = sc.reshape((B, PM * sc.shape[2]) + tuple(sc.shape[3:]))
+        return g.float() * sc[..., None]
+    return g
 
 
 def _write_rows(arr, vals, pos):
@@ -168,10 +246,12 @@ def _write_rows(arr, vals, pos):
 
 
 def _cache_write(cache, rows, pos):
-    """Write [B, S, nkv, hd] rows into a slot cache in place. The per-row
-    S=1 int8 form is the decode hot path and goes through the
-    ``fused_slot_write`` kernel; the rest is plain tensor code."""
-    _reject_paged(cache)
+    """Write [B, S, nkv, hd] rows into a cache in place. Paged caches go
+    through ``fused_paged_write``; the per-row S=1 int8 slot form is the
+    slot decode hot path and goes through ``fused_slot_write``; the rest
+    is plain tensor code."""
+    if _is_paged(cache):
+        return _paged_cache_write(cache, rows, pos)
     per_row = isinstance(pos, torch.Tensor) and pos.ndim == 1
     if isinstance(cache, dict):
         qrows, scale = _quant_rows(rows)
@@ -187,9 +267,11 @@ def _cache_write(cache, rows, pos):
 
 
 def _cache_read(cache):
-    """[B, L, nkv, hd] view: int8 dicts dequantise to f32, tensor caches
-    are returned unchanged (their dtype drives the PV product)."""
-    _reject_paged(cache)
+    """[B, L, nkv, hd] view: paged caches gather through their block
+    table, int8 dicts dequantise to f32, tensor caches are returned
+    unchanged (their dtype drives the PV product)."""
+    if _is_paged(cache):
+        return _paged_cache_read(cache)
     if isinstance(cache, dict):
         return cache["data"].float() * cache["scale"][..., None]
     return cache
@@ -265,14 +347,15 @@ def cached_attention(q, k, v, k_cache, v_cache, pos):
 
     Writes the S new k/v rows into the caches at [pos, pos+S) IN PLACE and
     attends q (query positions pos..pos+S-1) over every cache position
-    <= its own. q/k/v: [B, S, nh|nkv, hd]; caches: [B, L, nkv, hd] tensors
-    or int8 dicts; pos: an int (every row at one offset) or a [B] int32
-    tensor of per-row offsets (continuous batching). Returns
+    <= its own. q/k/v: [B, S, nh|nkv, hd]; caches: [B, L, nkv, hd] tensors,
+    int8 dicts or paged dicts (module docstring); pos: an int (every row
+    at one offset) or a [B] int32 tensor of per-row offsets (continuous
+    batching). Paged caches always take the general write-read-attend
+    body, the write first, so nothing reads a stale row. Returns
     (ctx [B, S, nh, hd], k_cache, v_cache) — the same cache objects.
     """
-    _reject_paged(k_cache)
     slot_decode = (isinstance(pos, torch.Tensor) and pos.ndim == 1
-                   and q.shape[1] == 1)
+                   and q.shape[1] == 1 and not _is_paged(k_cache))
     if not slot_decode:
         return _cached_attention_plain(q, k, v, k_cache, v_cache, pos)
     if isinstance(k_cache, dict):

@@ -159,7 +159,7 @@ def test_overload_and_cancel(models):
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"paged": True}, "paged"), ({"speculative": "ngram"}, "speculative"),
+    ({"speculative": "draft"}, "draft"),
     ({"tp": 2}, "tensor parallelism"), ({"do_sample": True}, "sampling")])
 def test_unported_options_raise(models, kw, what):
     with pytest.raises(NotImplementedError, match=what):

@@ -207,14 +207,6 @@ def test_wrappers_on_cpu_launch_nothing():
     assert cw.fused_slot_write.launches == 0
 
 
-def test_paged_cache_not_ported():
-    q, k, v, kc, vc, pos = _fixture()
-    paged = {"pages": torch.zeros(4, 4, 2, 8), "bt": torch.zeros(5, 4)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.cached_attention(_t(q), _t(k), _t(v), paged, paged,
-                             torch.from_numpy(pos))
-
-
 def _imports(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
