@@ -20,7 +20,14 @@ failure:
    pages, int8 pages and their f32 scale plane, bit-exact. Training
    (gpt_125m at batch 8 x seq 1024): flash attention forward and backward
    (B1) at B=8, H=12, S=1024, D=64; fused cross-entropy forward and
-   backward (B2) at N=8192, V=50304.
+   backward (B2) at N=8192, V=50304. Sequence parallelism (the ring
+   step of phase 14: B=8, H=12, 256-row shards, D=64): the blockwise flash
+   forward and backward (B5) on a diagonal, a past, a future (out 0, lse
+   -inf, zero grads) and a non-causal block, bf16 and f32, the backward
+   against a given delta with a nonzero lse cotangent folded in; then,
+   untimed, the same kind of blocks (and one with the causal edge
+   across every tile) at 250-row shards and offsets off every multiple
+   of 64.
 4. serving, bf16 cache: gpt_125m with seeded random weights behind
    ContinuousBatchingEngine(slots=8, max_len=1024, tick_tokens=8) and
    PredictorServer; 8 concurrent POST /generate. The mega-decode launch
@@ -57,7 +64,20 @@ failure:
    acceptance rate > 0 and accepted tokens per verify tick > 1; B3-paged
    launches equal (admissions + verify ticks + plain ticks x
    tick_tokens) x 12 x 2.
-13. summary: one {"kernels": [...]} line, the card line, and last the
+13. sequence-parallel attention: ring_attention and ulysses_attention on a
+   4-position mesh on the one card (devices=["cuda:0"] * 4) at B=8,
+   S=1024, H=12, D=64, causal, f32 and bf16: outputs and q/k/v grads
+   against the plain full attention; the dispatch takes the kernel path;
+   B5 launches equal 16 forward and 16 backward for the ring, 4 and 4 for
+   Ulysses (one per position), B1 none. Timed, then the same untimed at
+   S=1000 (250-row shards); on a host with 4 or more cards, the S=1024
+   run once more with one shard on each of cuda:0..3 (rotations and
+   all-to-alls become peer copies), timed.
+14. training step under sp=4: phase 8's step exactly, its attention
+   through the ring (devices=["cuda:0"] * 4): B5 launches equal 12 x 16
+   per step each way, B1 none, B2 1 + 1; no plain version runs; the
+   losses are held to phase 8's (LOSS_RTOL_SP); one step profiled.
+15. summary: one {"kernels": [...]} line, the card line, and last the
    {"ok": true, "device": {...}} line.
 """
 import json
@@ -77,6 +97,7 @@ MAX_NEW = 32
 TICK = 8
 LAYERS = 12
 PAGE, NUM_PAGES = 16, 512           # the paged engine's default pool
+SP = 4                              # the sequence-parallel degree
 
 
 def fail(msg):
@@ -388,9 +409,28 @@ def close(torch, got, want, rtol, atol_frac):
 # - dlogits: an elementwise exp of the same f32 values, no sum, so one
 #   step of the output type (2^-7 bf16, 1e-6 f32) and no atol: a zero
 #   (a masked column) must stay exactly zero.
+# - bf16 outputs of the sp ring (phase 13) are held in norm, not entry by
+#   entry: each entry is the f32 sum of sp = 4 block terms (the merged
+#   block outputs, or the blocks' dq / dk / dv contributions) that the
+#   kernel rounded to bf16 one by one, then rounded once more, and where
+#   those terms cancel (dk, dv of the early keys, which every query sees)
+#   the error is half a step of a term several times the entry (a CPU
+#   rehearsal with the plain versions: 1.2 % of an entry of |dv| ~ 2.7,
+#   3 % of one of |dk| ~ 0.5). The RMS of the error must stay within
+#   RMS_SP_BF16 of the reference's RMS: 4 steps, where a block at a wrong
+#   offset or an accumulator rotated the wrong way gives errors of the
+#   entries' own size. The kernel itself is held entry by entry in phase 3.
+# - the sp step's losses (phase 14) against phase 8's: the same weights,
+#   batch and optimizer, the attention rounded as above. A CPU rehearsal
+#   (plain versions, 2 layers of gpt_125m, batch 2 x 1024, 6 steps)
+#   measured a max rel 2.0e-5; LOSS_RTOL_SP is 50 times that, and 25 times
+#   below one step's change of the loss (~2.5 %), so a ring that trained
+#   differently would show.
 LIM_LSE = (1e-6, 1e-6)
 LIM_F32 = (1e-5, 5e-5)
 LIM_BF16 = (2.0 ** -7, 2.0 ** -7)
+RMS_SP_BF16 = 2.0 ** -6
+LOSS_RTOL_SP = 1e-3
 LIM_DLOGITS = {"bf16": (2.0 ** -7, 0.0), "f32": (1e-6, 0.0)}
 
 
@@ -411,6 +451,24 @@ def check_all(torch, what, comparisons):
     if bad:
         fail(f"{what}: {', '.join(bad)} over the limit")
     return row
+
+
+def check_rms(torch, what, comparisons, limit):
+    """Fail unless RMS(got - want) <= limit * RMS(want) for each (name,
+    got, want); prints the ratios and the max |err|."""
+    parts, bad = [], []
+    for name, got, want in comparisons:
+        g, w = got.float(), want.float()
+        ratio = ((g - w).square().mean().sqrt() /
+                 w.square().mean().sqrt()).item()
+        parts.append(f"{name} rms ratio {ratio:.3e} (max |err| "
+                     f"{(g - w).abs().max().item():.3e})")
+        if not ratio <= limit:
+            bad.append(name)
+    print(f"  {what}: " + "; ".join(parts) + f"; limit {limit:.3g}",
+          flush=True)
+    if bad:
+        fail(f"{what}: {', '.join(bad)} over the limit")
 
 
 def b1_cost(B, H, Sq, Sk, D, causal, q_off, k_off, elem):
@@ -500,6 +558,127 @@ def check_flash(torch, fa, flush):
             print(f"  flash_attn_{kind} {label} causal: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)", flush=True)
+    return errs, rows
+
+
+def b5_cost(B, H, Sq, Sk, D, causal, q_off, k_off, elem):
+    """(fwd bytes, fwd ops, bwd bytes, bwd ops) of one B5 block: B1's
+    counts, except that the backward reads delta [B, H, Sq] f32 where B1
+    reads out, and a block that no query sees needs no input: it only
+    writes its outputs (out 0 and lse -inf, or zero grads)."""
+    fwd_b, fwd_o, bwd_b, bwd_o = b1_cost(B, H, Sq, Sk, D, causal, q_off,
+                                         k_off, elem)
+    q_b, kv_b, row_b = B * H * Sq * D * elem, B * H * Sk * D * elem, \
+        B * H * Sq * 4
+    if fwd_o == 0:
+        return q_b + row_b, 0, q_b + 2 * kv_b, 0
+    return fwd_b, fwd_o, bwd_b - q_b + row_b, bwd_o
+
+
+# (name, causal, q_off, k_off) of the ring step's blocks at 256-row shards
+B5_CASES = (("diagonal", True, 256, 256), ("past", True, 768, 0),
+            ("future", True, 0, 768), ("non-causal", False, 256, 0))
+# the same at 250-row shards (S = 1000 at sp = 4), which tile neither the
+# kernel's 64-row blocks nor 128 rows, at offsets off every multiple of
+# 64; "skewed" puts the causal edge across every tile of the block
+B5_ODD_SL = 250
+B5_ODD_CASES = (("diagonal", True, 250, 250), ("past", True, 750, 250),
+                ("future", True, 0, 750), ("skewed", True, 280, 250),
+                ("non-causal", False, 500, 0))
+
+
+def b5_vs_plain(torch, fb, gen, dt, lim, B, H, sl, D, case, causal, q_off,
+                k_off, scale):
+    """One B5 case, forward and backward (against the plain forward's
+    lse and a delta with a random lse cotangent folded in) vs the plain
+    versions; a future block must give out 0, lse -inf and zero grads.
+    Returns (max errors, forward args, backward args)."""
+    label = "bf16" if dt == torch.bfloat16 else "f32"
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.randn(B, H, sl, D, device=dev,
+                               generator=gen).to(dt) for _ in range(4))
+    dlse = torch.randn(B, H, sl, device=dev, generator=gen)
+    fwd_args = (q, k, v, q_off, k_off, causal, scale)
+    out, lse = fb.flash_block_fwd(*fwd_args)
+    out_p, lse_p = fb.flash_block_fwd_plain(*fwd_args)
+    delta = fb.compute_delta(out_p, do, dlse)
+    bwd_args = (q, k, v, q_off, k_off, lse_p, do, delta, causal, scale)
+    grads = fb.flash_block_bwd(*bwd_args)
+    grads_p = fb.flash_block_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    errs = check_all(
+        torch, f"flash_block {label} {case} sl={sl} q_off/k_off={q_off}/"
+        f"{k_off} causal={causal}",
+        (("out", out, out_p, lim), ("lse", lse, lse_p, LIM_LSE),
+         ("dq", grads[0], grads_p[0], lim),
+         ("dk", grads[1], grads_p[1], lim),
+         ("dv", grads[2], grads_p[2], lim)))
+    if case == "future" and not (
+            bool((lse == float("-inf")).all()) and not out.any()
+            and not any(g.any() for g in grads)):
+        fail("flash_block: a future block must give out 0, lse -inf and "
+             "zero grads")
+    return errs, fwd_args, bwd_args
+
+
+def check_flash_block(torch, fb, flush):
+    """Phase 3, B5: forward and backward vs plain at the sp step's ring
+    shape, the backward against a given delta with a nonzero lse cotangent
+    folded in, timed; then, untimed, the same at 250-row shards.
+    Yardstick: aten's flash attention (it returns the logsumexp), bf16
+    only (its flash backend takes no f32); causal on the diagonal block,
+    full on the past and non-causal ones (every key visible)."""
+    B, H, sl, D = B_SLICE, NKV, L_SLICE // SP, HD
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    scale = 1.0 / D ** 0.5
+    lib_f = torch.ops.aten._scaled_dot_product_flash_attention
+    lib_b = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    errs, rows = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        label = "bf16" if dt == torch.bfloat16 else "f32"
+        lim = LIM_BF16 if dt == torch.bfloat16 else LIM_F32
+        for case, causal, q_off, k_off in B5_CASES:
+            errs[(label, case)], fwd_args, bwd_args = b5_vs_plain(
+                torch, fb, gen, dt, lim, B, H, sl, D, case, causal, q_off,
+                k_off, scale)
+            (q, k, v), do = fwd_args[:3], bwd_args[6]
+            ms = timed(torch, lambda: fb.flash_block_fwd(
+                q, k, v, q_off, k_off, causal, scale), flush)
+            bwd_ms = timed(torch, lambda: fb.flash_block_bwd(*bwd_args),
+                           flush)
+            pfwd_ms = timed(torch, lambda: fb.flash_block_fwd_plain(
+                q, k, v, q_off, k_off, causal, scale), flush, iters=10)
+            pbwd_ms = timed(torch, lambda: fb.flash_block_bwd_plain(
+                *bwd_args), flush, iters=10)
+            lib_fwd = lib_bwd = None
+            if dt == torch.bfloat16 and case != "future":
+                lc = case == "diagonal"
+                res = lib_f(q, k, v, 0.0, lc, False, scale=scale)
+                lib_fwd = timed(torch, lambda: lib_f(q, k, v, 0.0, lc, False,
+                                                     scale=scale), flush)
+                lib_bwd = timed(torch, lambda: lib_b(
+                    do, q, k, v, res[0], res[1], res[2], res[3], res[4],
+                    res[5], 0.0, lc, res[6], res[7], scale=scale), flush)
+            fb_, fo, bb, bo = b5_cost(B, H, sl, sl, D, causal, q_off, k_off,
+                                      q.element_size())
+            peak = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
+            for kind, t, plain_ms, lib_ms, nb, ops in (
+                    ("fwd", ms, pfwd_ms, lib_fwd, fb_, fo),
+                    ("bwd", bwd_ms, pbwd_ms, lib_bwd, bb, bo)):
+                bound_ms, by = bound(nb, ops, peak)
+                rows[(label, case, kind)] = dict(
+                    ms=t, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound_ms, bound_by=by)
+                lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+                print(f"  flash_block_{kind} {label} {case}: kernel {t:.4f} "
+                      f"ms, plain {plain_ms:.4f} ms, aten flash {lib_txt}, "
+                      f"bound {bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)",
+                      flush=True)
+    for dt, lim in ((torch.bfloat16, LIM_BF16), (torch.float32, LIM_F32)):
+        for case, causal, q_off, k_off in B5_ODD_CASES:
+            b5_vs_plain(torch, fb, gen, dt, lim, B, H, B5_ODD_SL, D, case,
+                        causal, q_off, k_off, scale)
     return errs, rows
 
 
@@ -665,10 +844,12 @@ def profile_window(torch, what, fn, top=10):
               f"{key[:90]}", flush=True)
 
 
-def train_step(torch, pkg, steps=5):
-    """Phase 8: the slice's step, bench.py's geometry. Returns the kernel
-    launch counts of the timed steps and the losses."""
-    fa, ce = pkg["fa"], pkg["ce"]
+def train_step(torch, pkg, steps=5, sp=1):
+    """Phase 8 (sp = 1) and phase 14 (the same step under an sp-way mesh
+    on the one card): the slice's step, bench.py's geometry. Returns the
+    kernel launch counts of the timed steps, the losses (warm step first)
+    and the ms per timed step."""
+    fa, ce, fb, dist = pkg["fa"], pkg["ce"], pkg["fb"], pkg["dist"]
     model = pkg["GPT"](pkg["gpt_125m"](), seed=0).bfloat16()
     opt = pkg["AdamW"](learning_rate=1e-4, parameters=model.parameters(),
                        multi_precision=True)
@@ -677,44 +858,138 @@ def train_step(torch, pkg, steps=5):
     ids = torch.from_numpy(rs.randint(0, model.cfg.vocab_size,
                                       (B_SLICE, L_SLICE)).astype("int64"))
     ids = ids.to(model.device)
-    losses = [step(ids, ids)]                    # warm: allocations, cuBLAS
-    torch.cuda.synchronize()
-    plain, restore = _count_plain([fa, ce])
-    fa.flash_attn_fwd.launches = fa.flash_attn_bwd.launches = 0
-    ce.ce_fwd.launches = ce.ce_bwd.launches = 0
+    if sp > 1:
+        dist.init_mesh({"sp": sp}, devices=["cuda:0"] * sp)
     try:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            losses.append(step(ids, ids))
+        losses = [step(ids, ids)]                # warm: allocations, cuBLAS
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        plain, restore = _count_plain([fa, ce, fb])
+        fa.flash_attn_fwd.launches = fa.flash_attn_bwd.launches = 0
+        fb.flash_block_fwd.launches = fb.flash_block_bwd.launches = 0
+        ce.ce_fwd.launches = ce.ce_bwd.launches = 0
+        try:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                losses.append(step(ids, ids))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        counts = {"flash_attn_fwd": fa.flash_attn_fwd.launches,
+                  "flash_attn_bwd": fa.flash_attn_bwd.launches,
+                  "flash_block_fwd": fb.flash_block_fwd.launches,
+                  "flash_block_bwd": fb.flash_block_bwd.launches,
+                  "ce_fwd": ce.ce_fwd.launches, "ce_bwd": ce.ce_bwd.launches}
+        vals = [float(x) for x in losses]
+        b1 = steps * LAYERS if sp == 1 else 0
+        b5 = steps * LAYERS * sp * sp if sp > 1 else 0
+        want = {"flash_attn_fwd": b1, "flash_attn_bwd": b1,
+                "flash_block_fwd": b5, "flash_block_bwd": b5,
+                "ce_fwd": steps, "ce_bwd": steps}
+        if counts != want or any(plain.values()):
+            fail(f"train step (sp={sp}) launches {counts} != {want} (= "
+                 f"{steps} steps x {LAYERS} layers x 1, or x sp^2 = "
+                 f"{sp * sp} ring blocks / x 1), plain calls {plain}")
+        if sp > 1 and dist.last_ring_dispatch()["path"] != "kernel":
+            fail(f"sp step dispatch {dist.last_ring_dispatch()}")
+        ln_v = math.log(model.cfg.vocab_size)
+        if not all(math.isfinite(x) for x in vals):
+            fail(f"train step: non-finite loss in {vals}")
+        if not abs(vals[0] - ln_v) <= 0.5:
+            fail(f"train step: first loss {vals[0]} not within 0.5 of ln V "
+                 f"{ln_v:.4f}")
+        if not vals[-1] < min(vals[0], vals[1]):
+            fail(f"train step: the last loss is not below the first: {vals}")
+        ms = wall / steps * 1e3
+        profile_window(torch, f"step (sp={sp})", lambda: step(ids, ids))
     finally:
-        restore()
-    counts = {"flash_attn_fwd": fa.flash_attn_fwd.launches,
-              "flash_attn_bwd": fa.flash_attn_bwd.launches,
-              "ce_fwd": ce.ce_fwd.launches, "ce_bwd": ce.ce_bwd.launches}
-    vals = [float(x) for x in losses]
-    want = {"flash_attn_fwd": steps * LAYERS, "flash_attn_bwd":
-            steps * LAYERS, "ce_fwd": steps, "ce_bwd": steps}
-    if counts != want or any(plain.values()):
-        fail(f"train step launches {counts} != {want} (= {steps} steps x "
-             f"{LAYERS} layers / x 1), plain calls {plain}")
-    ln_v = math.log(model.cfg.vocab_size)
-    if not all(math.isfinite(x) for x in vals):
-        fail(f"train step: non-finite loss in {vals}")
-    if not abs(vals[0] - ln_v) <= 0.5:
-        fail(f"train step: first loss {vals[0]} not within 0.5 of ln V "
-             f"{ln_v:.4f}")
-    if not vals[-1] < min(vals[0], vals[1]):
-        fail(f"train step: the last loss is not below the first: {vals}")
-    ms = wall / steps * 1e3
-    profile_window(torch, "step", lambda: step(ids, ids))
+        if sp > 1:
+            dist.set_mesh(None)
     print(f"  losses {['%.4f' % x for x in vals]} (warm step first); "
           f"{ms:.1f} ms/step, {B_SLICE * L_SLICE / (ms / 1e3):.0f} tokens/s "
           f"(smoke number, {steps} steps); launches {counts}, plain calls "
           f"{plain}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
-    return counts
+    return counts, vals, ms
+
+
+def check_sp_attention(torch, pkg, S, devices, timing):
+    """Phase 13: ring and Ulysses attention on an sp-position mesh over
+    ``devices`` against the plain full attention at sequence ``S``,
+    launches counted per call; with ``timing`` each call's forward +
+    backward timed beside B1's on the full sequence."""
+    fa, fb, dist = pkg["fa"], pkg["fb"], pkg["dist"]
+    B, H, D = B_SLICE, NKV, HD
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    scale = 1.0 / D ** 0.5
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    mesh = dist.init_mesh({"sp": SP}, devices=devices)
+    where = "one card" if len(set(mesh.axis_devices("sp"))) == 1 else \
+        f"{SP} cards"
+    try:
+        for dt in (torch.float32, torch.bfloat16):
+            label = f"{'bf16' if dt == torch.bfloat16 else 'f32'} S={S} " \
+                f"on {where}"
+            q, k, v, g = (torch.randn(B, S, H, D, device=dev,
+                                      generator=gen).to(dt) for _ in range(4))
+            qh, kh, vh, gh = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v, g))
+            o_ref, l_ref = fa.flash_attn_fwd_plain(qh, kh, vh, True, scale)
+            ref = (o_ref,) + fa.flash_attn_bwd_plain(qh, kh, vh, o_ref,
+                                                     l_ref, gh, True, scale)
+            for op, per_call in (("ring", SP * SP), ("ulysses", SP)):
+                fn = getattr(dist, f"{op}_attention")
+                leaves = [t.detach().clone().requires_grad_()
+                          for t in (q, k, v)]
+                plain, restore = _count_plain([fa, fb])
+                fa.flash_attn_fwd.launches = fa.flash_attn_bwd.launches = 0
+                fb.flash_block_fwd.launches = fb.flash_block_bwd.launches = 0
+                try:
+                    out = fn(*leaves, causal=True)
+                    grads = torch.autograd.grad(out, leaves, g)
+                    torch.cuda.synchronize()
+                finally:
+                    restore()
+                counts = {"flash_block_fwd": fb.flash_block_fwd.launches,
+                          "flash_block_bwd": fb.flash_block_bwd.launches,
+                          "flash_attn_fwd": fa.flash_attn_fwd.launches,
+                          "flash_attn_bwd": fa.flash_attn_bwd.launches}
+                want = {"flash_block_fwd": per_call,
+                        "flash_block_bwd": per_call,
+                        "flash_attn_fwd": 0, "flash_attn_bwd": 0}
+                disp = dist.last_ring_dispatch()
+                if counts != want or any(plain.values()) or (
+                        disp["path"], disp["op"]) != ("kernel", op) or any(
+                        t.device != dev for t in (out,) + grads):
+                    fail(f"{op}_attention {label}: launches {counts} != "
+                         f"{want}, plain calls {plain}, dispatch {disp}, "
+                         f"devices {[t.device for t in (out,) + grads]}")
+                got = [(n, x.transpose(1, 2), r) for n, x, r in
+                       zip(("out", "dq", "dk", "dv"), (out,) + grads, ref)]
+                what = f"{op}_attention {label} sp={SP} vs the plain full " \
+                    "attention"
+                if op == "ring" and dt == torch.bfloat16:
+                    check_rms(torch, what, got, RMS_SP_BF16)
+                else:
+                    lim = LIM_F32 if dt == torch.float32 else LIM_BF16
+                    check_all(torch, what, [c + (lim,) for c in got])
+                txt = ""
+                if timing:
+                    ms = timed(torch, lambda: torch.autograd.grad(
+                        fn(*leaves, causal=True), leaves, g), flush,
+                        iters=10)
+                    txt = f"; fwd + bwd {ms:.3f} ms"
+                print(f"  {op}_attention {label}: launches {counts}{txt}",
+                      flush=True)
+            if timing:
+                b1_ms = timed(torch, lambda: fa.flash_attn_bwd(
+                    qh, kh, vh, *fa.flash_attn_fwd(qh, kh, vh, True, scale),
+                    gh, True, scale), flush, iters=10)
+                print(f"  B1 fwd + bwd on the full sequence ({label}): "
+                      f"{b1_ms:.3f} ms", flush=True)
+    finally:
+        dist.set_mesh(None)
 
 
 def post_all(url, prompts, max_new):
@@ -868,6 +1143,7 @@ def main():
         fail("torch.cuda.is_available() is False: this script needs a card")
     try:
         import numpy as np
+        from paddle_tpu_torch import distributed as dist
         from paddle_tpu_torch.convert import load_paddle_tpu_params
         from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                                 PredictorServer)
@@ -875,6 +1151,7 @@ def main():
         from paddle_tpu_torch.jit import TrainStep
         from paddle_tpu_torch.kernels import cache_write as cw
         from paddle_tpu_torch.kernels import flash_attention as fa
+        from paddle_tpu_torch.kernels import flash_block as fb
         from paddle_tpu_torch.kernels import fused_ce as ce
         from paddle_tpu_torch.kernels import mega_decode as md
         from paddle_tpu_torch.models import (GPTForCausalLM, generate,
@@ -882,7 +1159,8 @@ def main():
         from paddle_tpu_torch.optimizer import AdamW
     except ImportError as e:
         fail(f"cannot import paddle_tpu_torch (run from the repo root): {e}")
-    pkg = {"md": md, "cw": cw, "fa": fa, "ce": ce, "np": np,
+    pkg = {"md": md, "cw": cw, "fa": fa, "fb": fb, "ce": ce, "np": np,
+           "dist": dist,
            "generate": generate,
            "Engine": ContinuousBatchingEngine, "Server": PredictorServer,
            "GPT": GPTForCausalLM, "gpt_125m": gpt_125m, "AdamW": AdamW,
@@ -918,6 +1196,7 @@ def main():
     b3p_rows = check_paged_write(torch, np, cw, flush)
     b1_errs, b1_rows = check_flash(torch, fa, flush)
     b2_errs, b2_rows = check_ce(torch, ce, flush)
+    b5_errs, b5_rows = check_flash_block(torch, fb, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -968,7 +1247,7 @@ def main():
 
     print("phase 8: training step, bf16 gpt_125m, AdamW multi_precision, "
           f"batch {B_SLICE} x seq {L_SLICE}", flush=True)
-    train_counts = train_step(torch, pkg)
+    train_counts, losses8, ms8 = train_step(torch, pkg)
     torch.cuda.empty_cache()
 
     model = GPTForCausalLM(gpt_125m(), seed=0)        # phase 4's weights
@@ -1041,7 +1320,29 @@ def main():
                  "speculative paged serving")
     del model, oracle
 
-    print("phase 13: summary", flush=True)
+    print(f"phase 13: sequence-parallel attention, sp={SP}, B={B_SLICE} "
+          f"H={NKV} D={HD}", flush=True)
+    check_sp_attention(torch, pkg, L_SLICE, ["cuda:0"] * SP, timing=True)
+    check_sp_attention(torch, pkg, B5_ODD_SL * SP, ["cuda:0"] * SP,
+                       timing=False)
+    if torch.cuda.device_count() >= SP:
+        check_sp_attention(torch, pkg, L_SLICE,
+                           [f"cuda:{i}" for i in range(SP)], timing=True)
+    torch.cuda.empty_cache()
+
+    print(f"phase 14: training step under sp={SP} (ring attention on B5), "
+          f"bf16 gpt_125m, batch {B_SLICE} x seq {L_SLICE}", flush=True)
+    sp_counts, losses14, ms14 = train_step(torch, pkg, sp=SP)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses14, losses8)]
+    if not max(rel) <= LOSS_RTOL_SP:
+        fail(f"sp losses {losses14} vs phase 8's {losses8}: max rel "
+             f"{max(rel):.3e} > {LOSS_RTOL_SP}")
+    print(f"  losses vs phase 8's: max rel {max(rel):.3e} (tol "
+          f"{LOSS_RTOL_SP}); {ms14:.1f} ms/step under sp={SP} against phase "
+          f"8's {ms8:.1f} ms/step", flush=True)
+    torch.cuda.empty_cache()
+
+    print("phase 15: summary", flush=True)
     main_b4 = b4_rows[("bf16", "serving-like pos")]
     main_b3 = b3_rows["int8 data"]
     main_b3p = b3p_rows[("bf16 pages", "decode")]
@@ -1090,6 +1391,23 @@ def main():
             "max_abs_err": err, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    for name, kind, replaces in (
+            ("flash_block_attention", "fwd",
+             "paddle_tpu/kernels/flash_block.py:348"),
+            ("flash_block_attention_bwd", "bwd",
+             "paddle_tpu/kernels/flash_block.py:386")):
+        row = b5_rows[("bf16", "past", kind)]
+        err = b5_errs[("bf16", "past")]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "launches": sp_counts[f"flash_block_{kind}"],
+            "max_abs_err": max(err["out"], err["lse"]) if kind == "fwd"
+            else max(err["dq"], err["dk"], err["dv"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

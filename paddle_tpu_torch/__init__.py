@@ -17,7 +17,10 @@ and int8 slot KV caches, the continuous-batching engine and its HTTP
 server; training — the GPT step: ``flash_attention`` and
 ``cross_entropy`` on their kernels, ``optimizer.AdamW`` / ``Adam`` (with
 f32 master weights), ``optimizer.lr`` schedulers,
-``nn.clip.ClipGradByGlobalNorm`` and ``jit.TrainStep``.
+``nn.clip.ClipGradByGlobalNorm`` and ``jit.TrainStep``; sequence
+parallelism — ``distributed.init_mesh({"sp": n})`` (a single-controller
+mesh), ``ring_attention`` and ``ulysses_attention`` on the blockwise flash
+kernels, which GPT's attention takes under such a mesh.
 """
 from .device import resolve_device
 

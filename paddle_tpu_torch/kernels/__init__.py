@@ -43,3 +43,10 @@ def check_launch(op: str, rc: int) -> None:
     """Raise on the cudaError_t a kernel's C entry returned."""
     if rc != 0:
         raise RuntimeError(f"{op}: CUDA launch failed with cudaError_t {rc}")
+
+
+# B5's public functions, as paddle_tpu/kernels/__init__.py exports them
+# (imported last: the kernel modules import the helpers above)
+from .flash_block import (compute_delta, flash_attention_lse,  # noqa: E402
+                          flash_block_attention, flash_block_attention_bwd,
+                          merge_lse_blocks)

@@ -22,10 +22,25 @@
 //                      registers;
 //   flash_dq_kernel    per (b, h, q tile): computes delta for its rows (and
 //                      stores it for the next kernel), then walks the key
-//                      tiles accumulating dQ;
+//                      tiles accumulating dQ; with DELTA_IN it reads a
+//                      given delta instead and reads no O (below);
 //   flash_dkv_kernel   per (b, h, k tile): walks the query tiles that can
 //                      see it, accumulating dK and dV.
 // The backward is FA2-shaped and uses no atomics, so it is deterministic.
+//
+// The same forward is also B5's, paddle_tpu/kernels/flash_block.py:
+// flash_block_attention (_fwd): attention of q against one k/v block at
+// global offsets, returning (out, lse) for sequence-parallel rings; a
+// block wholly in the causal future skips every key tile and writes out 0,
+// lse -inf. B5's backward (flash_block_attention_bwd, _bwd) is
+// flash_block_bwd_launch: the same two passes against GLOBAL (lse, delta)
+// residuals, delta given by the caller (rowsum(dO * O) of the merged
+// output, minus any lse cotangent), so the dQ pass is instantiated with
+// DELTA_IN: it neither reads O nor writes delta, which a ring shares
+// across its sp block steps. At the sp training step's ring shape (B 8,
+// H 12, 256-row blocks, D 64, bf16) a block that every query sees moves
+// ~12.6 MB for 1.6 GFLOP forward: bytes bound it at the tensor-core rate,
+// and this kernel's own limit is its f32 FMA rate, as below.
 //
 // What bounds it on this card: operations. At the GPT-125M training shape
 // (B 8, H 12, S 1024, D 64, causal) the forward does ~12.9 GFLOP against
@@ -233,7 +248,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------- backward: dQ pass
 
-template <typename T, int DM>
+// DELTA_IN false (B1): delta = rowsum(dO * O) here, stored for the dK/dV
+// pass. DELTA_IN true (B5): delta is an input, o is not read.
+template <typename T, int DM, bool DELTA_IN>
 __global__ void __launch_bounds__(kThreads)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
@@ -258,7 +275,14 @@ __global__ void __launch_bounds__(kThreads)
 
   load_rows_t<T, DM>(Qt, q + qoff, q0, g.Sq, g.D);
   load_rows_t<T, DM>(dOt, dout + qoff, q0, g.Sq, g.D);
-  {
+  if constexpr (DELTA_IN) {
+    if (tid < BR) {
+      const int qi = q0 + tid;
+      const float ls = qi < g.Sq ? lse[bh * g.Sq + qi] : 0.f;
+      lse_s[tid] = (ls == -INFINITY) ? 0.f : ls;
+      dl_s[tid] = qi < g.Sq ? delta[bh * g.Sq + qi] : 0.f;
+    }
+  } else {
     // delta = rowsum(dO * O): four threads per row, then a 4-lane shuffle
     const int r = tid / 4, part = tid % 4, qi = q0 + r;
     float acc = 0.f;
@@ -513,11 +537,11 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T, int DM>
+template <typename T, int DM, bool DELTA_IN>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const float* lse, float* delta, void* dq,
                 void* dk, void* dv, int BH, const Geo& g, cudaStream_t st) {
-  auto kq = flash_dq_kernel<T, DM>;
+  auto kq = flash_dq_kernel<T, DM, DELTA_IN>;
   auto kkv = flash_dkv_kernel<T, DM>;
   constexpr size_t sq = dq_smem<DM>(), skv = dkv_smem<DM>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -531,7 +555,8 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
   const T* vv = static_cast<const T*>(v);
   const T* oo = static_cast<const T*>(o);
   const T* dd = static_cast<const T*>(dout);
-  // dQ first: it writes delta, which the dK/dV pass reads (same stream)
+  // dQ first: without DELTA_IN it writes delta, which the dK/dV pass
+  // reads (same stream)
   kq<<<dim3((g.Sq + BR - 1) / BR, BH), kThreads, sq, st>>>(
       qq, kk, vv, oo, dd, lse, delta, static_cast<T*>(dq), g);
   e = cudaGetLastError();
@@ -544,6 +569,21 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
 
 bool geo_ok(int BH, int Sq, int Sk, int D) {
   return BH >= 1 && BH <= 65535 && Sq >= 1 && Sk >= 1 && D >= 1 && D <= 128;
+}
+
+template <bool DELTA_IN>
+int bwd_any(const void* q, const void* k, const void* v, const void* o,
+            const void* dout, const float* l, float* dl, void* dq, void* dk,
+            void* dv, int BH, const Geo& g, int is_bf16, cudaStream_t st) {
+  if (is_bf16)
+    return g.D <= 64 ? (int)bwd<__nv_bfloat16, 64, DELTA_IN>(
+                           q, k, v, o, dout, l, dl, dq, dk, dv, BH, g, st)
+                     : (int)bwd<__nv_bfloat16, 128, DELTA_IN>(
+                           q, k, v, o, dout, l, dl, dq, dk, dv, BH, g, st);
+  return g.D <= 64 ? (int)bwd<float, 64, DELTA_IN>(q, k, v, o, dout, l, dl,
+                                                   dq, dk, dv, BH, g, st)
+                   : (int)bwd<float, 128, DELTA_IN>(q, k, v, o, dout, l, dl,
+                                                    dq, dk, dv, BH, g, st);
 }
 
 }  // namespace
@@ -576,16 +616,29 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 float scale, int is_bf16, void* stream) {
   if (!geo_ok(BH, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
   const Geo g{Sq, Sk, D, causal, q_off, k_off, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  if (is_bf16)
-    return D <= 64 ? (int)bwd<__nv_bfloat16, 64>(q, k, v, o, dout, l, dl, dq,
-                                                 dk, dv, BH, g, st)
-                   : (int)bwd<__nv_bfloat16, 128>(q, k, v, o, dout, l, dl,
-                                                  dq, dk, dv, BH, g, st);
-  return D <= 64 ? (int)bwd<float, 64>(q, k, v, o, dout, l, dl, dq, dk, dv,
-                                       BH, g, st)
-                 : (int)bwd<float, 128>(q, k, v, o, dout, l, dl, dq, dk, dv,
-                                        BH, g, st);
+  return bwd_any<false>(q, k, v, o, dout, static_cast<const float*>(lse),
+                        static_cast<float*>(delta), dq, dk, dv, BH, g,
+                        is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// B5's backward: the same layouts without O; lse and delta [BH, Sq] f32
+// are the caller's (global residuals of a ring, or of one block with any
+// lse cotangent folded into delta) and are only read. Two launches: dQ,
+// then dK/dV.
+extern "C" int flash_block_bwd_launch(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dq, void* dk, void* dv, int BH,
+                                      int Sq, int Sk, int D, int causal,
+                                      int q_off, int k_off, float scale,
+                                      int is_bf16, void* stream) {
+  if (!geo_ok(BH, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
+  const Geo g{Sq, Sk, D, causal, q_off, k_off, scale};
+  // DELTA_IN never writes delta: the const_cast only fits the shared
+  // kernel signature
+  return bwd_any<true>(q, k, v, nullptr, dout,
+                       static_cast<const float*>(lse),
+                       const_cast<float*>(static_cast<const float*>(delta)),
+                       dq, dk, dv, BH, g, is_bf16,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -36,9 +36,12 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 128
 _NEG_INF = float("-inf")
 _GEO = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# one table for the library: kernels/flash_block.py (B5) loads it too, and
+# a library's signatures are applied once, at its first load
 _SIGNATURES = {
     "flash_fwd_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + _GEO),
-    "flash_bwd_launch": (ctypes.c_int, [ctypes.c_void_p] * 10 + _GEO)}
+    "flash_bwd_launch": (ctypes.c_int, [ctypes.c_void_p] * 10 + _GEO),
+    "flash_block_bwd_launch": (ctypes.c_int, [ctypes.c_void_p] * 9 + _GEO)}
 
 
 def _acc(t):
@@ -78,12 +81,19 @@ def flash_attn_bwd_plain(q, k, v, out, lse, do, causal, sm_scale, q_off=0,
     (out, lse): ``p = exp(s - lse)``, ``delta = rowsum(dO * O)``,
     ``dS = p (dO V^T - delta) scale``. Returns (dq, dk, dv) at the inputs'
     dtypes."""
+    delta = (do.to(_acc(q)) * out.to(_acc(q))).sum(-1)
+    return _grads(q, k, v, lse, do, delta, causal, sm_scale, q_off, k_off)
+
+
+def _grads(q, k, v, lse, do, delta, causal, sm_scale, q_off, k_off):
+    """The backward's body against given (lse, delta) [B, H, Sq]: B1's
+    and B5's plain versions."""
     s = _scores(q, k, causal, sm_scale, q_off, k_off)
     a = s.dtype
     lse_safe = torch.where(lse == _NEG_INF, 0.0, lse.to(a))
     p = torch.exp(s - lse_safe[..., None])             # masked: exp(-inf) = 0
     dof = do.to(a)
-    delta = (dof * out.to(a)).sum(-1)
+    delta = delta.to(a)
     dv = torch.matmul(p.transpose(-1, -2), dof)
     dp = torch.matmul(dof, v.to(a).transpose(-1, -2))
     ds = p * (dp - delta[..., None]) * sm_scale

@@ -9,11 +9,13 @@ the LM head is tied to the word embedding.
 Ported: the cached forward (prefill and per-row decode, the serving
 path, over slot caches or the paged pools of ``new_paged_cache``), the
 no-cache forward on the flash-attention kernels (training and
-evaluation), ``loss_fn`` / ``make_loss_fn`` on the fused cross-entropy
-kernels, and ``train()`` / ``bfloat16()`` (torch's own, which cast every
-float parameter as paddle_tpu's ``Layer.bfloat16()`` does). Not yet:
-``scan_layers``, ``use_moe``, ``recompute``, ``fused_loss_chunk``, the
-pipeline class and sequence parallelism (ROADMAP.md).
+evaluation) or, when the mesh has an ``sp`` axis above 1, on
+``ring_attention`` (the blockwise kernels, B5), ``loss_fn`` /
+``make_loss_fn`` on the fused cross-entropy kernels, and ``train()`` /
+``bfloat16()`` (torch's own, which cast every float parameter as
+paddle_tpu's ``Layer.bfloat16()`` does). Not yet: ``scan_layers``,
+``use_moe``, ``recompute``, ``fused_loss_chunk`` and the pipeline class
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..distributed.mesh import mesh_axis_size
+from ..distributed.sequence_parallel import ring_attention
 from ..nn import functional as F
 from .generation import new_kv_caches, new_paged_kv_caches
 
@@ -127,8 +131,11 @@ class GPTAttention(nn.Module):
         if cache is not None:
             ctx, kc, vc = F.cached_attention(q, k, v, cache[0], cache[1], pos)
             return self.dropout(self.out_proj(ctx.reshape(B, S, H))), (kc, vc)
-        ctx, _ = F.flash_attention(q, k, v, causal=True,
-                                   training=self.training)
+        if mesh_axis_size("sp") > 1:
+            ctx = ring_attention(q, k, v, causal=True)
+        else:
+            ctx, _ = F.flash_attention(q, k, v, causal=True,
+                                       training=self.training)
         return self.dropout(self.out_proj(ctx.reshape(B, S, H)))
 
 
