@@ -8,7 +8,9 @@ failure:
 
 1. card: name and power limit (nvidia-smi); TF32 matmuls off.
 2. build: compile every kernel from the repository's CUDA sources, one
-   nvcc per source, all at once, each timed.
+   nvcc per source, all at once, each timed; ptxas's registers and spills
+   of every tensor-core flash kernel and the dynamic shared memory each
+   asks for.
 3. kernels: each kernel against its plain PyTorch version on the card at
    its slice's shapes; error, kernel / plain / library-call time (CUDA
    events, L2 flushed before each launch) and the least time the card
@@ -19,12 +21,17 @@ failure:
    decode shape (n = 8 rows) and an admission shape (n = 512), bf16/f32
    pages, int8 pages and their f32 scale plane, bit-exact. Training
    (gpt_125m at batch 8 x seq 1024): flash attention forward and backward
-   (B1) at B=8, H=12, S=1024, D=64; fused cross-entropy forward and
+   (B1) at B=8, H=12, S=1024, D=64, bf16 on the tensor-core kernels and
+   f32 on the SIMT ones (each launch's path checked by its counters), both
+   held to the plain versions (f32 products), with SDPA's error against
+   the same printed beside each bf16 case; fused cross-entropy forward and
    backward (B2) at N=8192, V=50304. Sequence parallelism (the ring
    step of phase 14: B=8, H=12, 256-row shards, D=64): the blockwise flash
    forward and backward (B5) on a diagonal, a past, a future (out 0, lse
-   -inf, zero grads) and a non-causal block, bf16 and f32, the backward
-   against a given delta with a nonzero lse cotangent folded in; then,
+   -inf, zero grads) and a non-causal block, bf16 and f32 (paths and
+   limits as B1's; aten flash's error against the f32 products beside),
+   the backward against a given delta with a nonzero lse cotangent folded
+   in; then,
    untimed, the same kind of blocks (and one with the causal edge
    across every tile) at 250-row shards and offsets off every multiple
    of 64.
@@ -45,7 +52,8 @@ failure:
 8. training step, bf16: TrainStep(gpt_125m().bfloat16(), loss_fn,
    AdamW(lr=1e-4, multi_precision=True)) at batch 8 x seq 1024, 1 warm
    step then 5 on the same batch: finite, decreasing losses; the kernel
-   launch counts equal their formulas and no plain version runs.
+   launch counts equal their formulas, every B1 launch takes the
+   tensor-core kernels and no plain version runs.
 9. paged serving, bf16 pool: the same engine with paged=True,
    page_size=16, prefix_cache=True (512 pages); 8 concurrent requests
    share one 256-token prefix (16 pages) before distinct 16-200-token
@@ -69,16 +77,24 @@ failure:
    S=1024, H=12, D=64, causal, f32 and bf16: outputs and q/k/v grads
    against the plain full attention; the dispatch takes the kernel path;
    B5 launches equal 16 forward and 16 backward for the ring, 4 and 4 for
-   Ulysses (one per position), B1 none. Timed, then the same untimed at
+   Ulysses (one per position), bf16 on the tensor-core kernels and f32 on
+   the SIMT ones, B1 none. Timed, then the same untimed at
    S=1000 (250-row shards); on a host with 4 or more cards, the S=1024
    run once more with one shard on each of cuda:0..3 (rotations and
    all-to-alls become peer copies), timed.
 14. training step under sp=4: phase 8's step exactly, its attention
    through the ring (devices=["cuda:0"] * 4): B5 launches equal 12 x 16
-   per step each way, B1 none, B2 1 + 1; no plain version runs; the
+   per step each way, all on the tensor-core kernels, B1 none, B2 1 + 1;
+   no plain version runs; the
    losses are held to phase 8's (LOSS_RTOL_SP); one step profiled.
-15. summary: one {"kernels": [...]} line, the card line, and last the
+15. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
+   tensor-core kernels of phases 8 and 14, and the f32 SIMT ones of
+   phases 7 and 13), the card line, and last the
    {"ok": true, "device": {...}} line.
+
+``python3 chip_smoke.py --sp-cards`` on a host with 4 or more cards runs
+phases 1 and 2 and then only phase 13's run with one shard on each of
+cuda:0..3, and prints no result line.
 """
 import json
 import math
@@ -402,10 +418,16 @@ def close(torch, got, want, rtol, atol_frac):
 #   An entry that cancels to near 0 (dq, dk) keeps the f32 error of its
 #   larger terms: on the card up to 8e-7, 1.5e-5 of a typical |dq| or
 #   |dk| (0.03-0.05).
-# - bf16 outputs of B1: each side rounds its own f32 result to bf16, so
-#   an entry may differ by one bf16 step, at most 2^-7 of its size; the
-#   atol of one step of a typical entry covers the f32 differences of
-#   entries that cancel to near 0 (dq, dk).
+# - bf16 outputs of B1 and B5: both sides take every product as an f32
+#   product of the inputs (the tensor-core kernels carry P and dS into
+#   their bf16 products as bf16 parts: three for the forward's P, within
+#   2^-24, two for the backward's P and dS, within 2^-16) and round
+#   their own f32 result to bf16, so an entry may differ by one bf16 step,
+#   at most 2^-7 of its size; the atol of one step of a typical entry
+#   covers the f32 differences of entries that cancel to near 0 (dq, dk).
+#   A kernel that rounded P or dS to bf16 (as _pallas_flash does) would
+#   not hold it: phase 3 prints how far SDPA and aten flash, which round P,
+#   sit from the same plain version.
 # - dlogits: an elementwise exp of the same f32 values, no sum, so one
 #   step of the output type (2^-7 bf16, 1e-6 f32) and no atol: a zero
 #   (a masked column) must stay exactly zero.
@@ -489,21 +511,86 @@ def b1_cost(B, H, Sq, Sk, D, causal, q_off, k_off, elem):
     return fwd_bytes, 4 * D * pairs, bwd_bytes, 10 * D * pairs
 
 
+def short_kernel_name(mangled):
+    """``fwd_tc_kernel<64, 2>`` from its mangled name (template arguments
+    in order: D, consumer warpgroups, DELTA_IN), a plain kernel's name
+    alone."""
+    import re
+    name, rest = mangled, ""
+    # <length><name> of the kernel; the length's digits may follow other
+    # digits (an anonymous namespace's hash), so try each suffix of a run
+    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+        digits, start = m.group(1), m.end()
+        for i in range(len(digits)):
+            cand = mangled[start:start + int(digits[i:])]
+            if (cand.endswith("_kernel")
+                    and mangled[start + len(cand):][:1] in ("E", "I")):
+                name, rest = cand, mangled[start + len(cand):]
+    if not rest.startswith("I"):
+        return name
+    args = re.findall(r"Li(\d+)E|Lb(\d)E", rest.split("EEv")[0])
+    return f"{name}<" + ", ".join(
+        a or ("true" if b == "1" else "false") for a, b in args) + ">"
+
+
+def tc_smem(lib, name):
+    """The dynamic shared memory (bytes) a tensor-core flash kernel asks
+    for, from its short name; 0 for a kernel without templates."""
+    if "<" not in name:
+        return 0
+    pas = 0 if name.startswith("fwd") else 1 if name.startswith("dq") else 2
+    D, nc = (int(x) for x in name.split("<")[1].rstrip(">").split(", ")[:2])
+    return lib.flash_tc_smem_bytes(pas, D, nc)
+
+
+def path_counts(*wrappers):
+    """(tensor-core, SIMT) launch counts summed over ``wrappers``."""
+    return (sum(w.tc_launches for w in wrappers),
+            sum(w.simt_launches for w in wrappers))
+
+
+def reset_counts(*wrappers):
+    for w in wrappers:
+        w.launches = w.tc_launches = w.simt_launches = 0
+
+
+def expect_path(what, fa, dt, D, counts, n):
+    """Fail unless the ``n`` launches behind ``counts`` = (tc, simt) all
+    took the path ``fa._tc_path`` gives for (dt, D)."""
+    want = (n, 0) if fa._tc_path(dt, D) else (0, n)
+    if counts != want:
+        fail(f"{what}: (tensor-core, SIMT) launches {counts} != {want}")
+
+
+def evidence(torch, what, pairs):
+    """Print worst error / LIM_BF16 of each (name, library's result, plain
+    version's): how far the library call sits from the f32 products that
+    the kernel is held to (not a check)."""
+    print(f"    {what} vs the plain version (worst / LIM_BF16): " + ", ".join(
+        f"{n} {close(torch, g, w, *LIM_BF16)[2]:.3g}" for n, g, w in pairs),
+        flush=True)
+
+
 def check_flash(torch, fa, flush):
-    """Phase 3, B1: kernel vs plain at the training slice's shapes."""
+    """Phase 3, B1: kernel vs plain at the training slice's shapes; bf16
+    takes the tensor-core kernels (``LIM_BF16``), f32 the SIMT ones
+    (``LIM_F32``), both against the plain versions (f32 products). Beside
+    each bf16 case without offsets: SDPA's error against the same."""
     B, H, S, D = B_SLICE, NKV, L_SLICE, HD
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     scale = 1.0 / D ** 0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = [(torch.bfloat16, True, 0, 0), (torch.float32, True, 0, 0),
              (torch.bfloat16, False, 0, 0), (torch.float32, False, 0, 0),
              # keys start at global position 512: query rows 0..511 see no
              # key (out 0, lse -inf, zero grads)
-             (torch.float32, True, 0, 512)]
+             (torch.float32, True, 0, 512), (torch.bfloat16, True, 0, 512)]
     errs = {}
     for dt, causal, q_off, k_off in cases:
         q, k, v, do = (torch.randn(B, H, S, D, device=dev,
                                    generator=gen).to(dt) for _ in range(4))
+        reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
         out, lse = fa.flash_attn_fwd(q, k, v, causal, scale, q_off, k_off)
         out_p, lse_p = fa.flash_attn_fwd_plain(q, k, v, causal, scale, q_off,
                                                k_off)
@@ -512,19 +599,28 @@ def check_flash(torch, fa, flush):
         grads_p = fa.flash_attn_bwd_plain(q, k, v, out_p, lse_p, do, causal,
                                           scale, q_off, k_off)
         torch.cuda.synchronize()
+        what = f"flash_attn {dt} causal={causal} q_off/k_off={q_off}/{k_off}"
+        expect_path(what, fa, dt, D,
+                    path_counts(fa.flash_attn_fwd, fa.flash_attn_bwd), 2)
         lim = LIM_BF16 if dt == torch.bfloat16 else LIM_F32
         row = check_all(
-            torch, f"flash_attn {dt} causal={causal} q_off/k_off={q_off}/"
-            f"{k_off}", (("out", out, out_p, lim),
-                         ("lse", lse, lse_p, LIM_LSE),
-                         ("dq", grads[0], grads_p[0], lim),
-                         ("dk", grads[1], grads_p[1], lim),
-                         ("dv", grads[2], grads_p[2], lim)))
+            torch, what, (("out", out, out_p, lim),
+                          ("lse", lse, lse_p, LIM_LSE),
+                          ("dq", grads[0], grads_p[0], lim),
+                          ("dk", grads[1], grads_p[1], lim),
+                          ("dv", grads[2], grads_p[2], lim)))
         if k_off > q_off and not (bool((lse[:, :, :k_off] == float(
                 "-inf")).all()) and not out[:, :, :k_off].any()
                 and not grads[0][:, :, :k_off].any()):
             fail("flash: fully masked rows must give out 0, lse -inf, dq 0")
         errs[(dt, causal, k_off)] = row
+        if dt == torch.bfloat16 and q_off == k_off:   # SDPA has no offsets
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            o_l = sdpa(*leaves, is_causal=causal)
+            g_l = torch.autograd.grad(o_l, leaves, do)
+            evidence(torch, "SDPA", list(zip(("out", "dq", "dk", "dv"),
+                                             (o_l,) + g_l,
+                                             (out_p,) + grads_p)))
 
     rows = {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -591,14 +687,17 @@ def b5_vs_plain(torch, fb, gen, dt, lim, B, H, sl, D, case, causal, q_off,
                 k_off, scale):
     """One B5 case, forward and backward (against the plain forward's
     lse and a delta with a random lse cotangent folded in) vs the plain
-    versions; a future block must give out 0, lse -inf and zero grads.
-    Returns (max errors, forward args, backward args)."""
+    versions, each launch on the path ``_tc_path`` gives; a future block
+    must give out 0, lse -inf and zero grads. Beside a bf16 block that is
+    plain causal or full: aten flash's forward error against the same plain
+    version. Returns (max errors, forward args, backward args)."""
     label = "bf16" if dt == torch.bfloat16 else "f32"
     dev = torch.device("cuda")
     q, k, v, do = (torch.randn(B, H, sl, D, device=dev,
                                generator=gen).to(dt) for _ in range(4))
     dlse = torch.randn(B, H, sl, device=dev, generator=gen)
     fwd_args = (q, k, v, q_off, k_off, causal, scale)
+    reset_counts(fb.flash_block_fwd, fb.flash_block_bwd)
     out, lse = fb.flash_block_fwd(*fwd_args)
     out_p, lse_p = fb.flash_block_fwd_plain(*fwd_args)
     delta = fb.compute_delta(out_p, do, dlse)
@@ -606,9 +705,12 @@ def b5_vs_plain(torch, fb, gen, dt, lim, B, H, sl, D, case, causal, q_off,
     grads = fb.flash_block_bwd(*bwd_args)
     grads_p = fb.flash_block_bwd_plain(*bwd_args)
     torch.cuda.synchronize()
+    what = (f"flash_block {label} {case} sl={sl} q_off/k_off={q_off}/"
+            f"{k_off} causal={causal}")
+    expect_path(what, fb._fa, dt, D,
+                path_counts(fb.flash_block_fwd, fb.flash_block_bwd), 2)
     errs = check_all(
-        torch, f"flash_block {label} {case} sl={sl} q_off/k_off={q_off}/"
-        f"{k_off} causal={causal}",
+        torch, what,
         (("out", out, out_p, lim), ("lse", lse, lse_p, LIM_LSE),
          ("dq", grads[0], grads_p[0], lim),
          ("dk", grads[1], grads_p[1], lim),
@@ -618,6 +720,10 @@ def b5_vs_plain(torch, fb, gen, dt, lim, B, H, sl, D, case, causal, q_off,
             and not any(g.any() for g in grads)):
         fail("flash_block: a future block must give out 0, lse -inf and "
              "zero grads")
+    if dt == torch.bfloat16 and case in ("diagonal", "past", "non-causal"):
+        lib = torch.ops.aten._scaled_dot_product_flash_attention(
+            q, k, v, 0.0, case == "diagonal", False, scale=scale)
+        evidence(torch, "aten flash", [("out", lib[0], out_p)])
     return errs, fwd_args, bwd_args
 
 
@@ -765,12 +871,19 @@ def train_parity(torch, pkg):
     ids = pkg["np"].random.RandomState(1).randint(
         0, model.cfg.vocab_size, (2, 128))
     losses, grads = [], []
+    fa = pkg["fa"]
+    reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
     for m in (model, cpu):
         x = torch.from_numpy(ids).to(m.device)
         loss = m.loss_fn(m(x), x)
         loss.backward()
         losses.append(loss.item())
         grads.append({n: p.grad for n, p in m.named_parameters()})
+    counts = {w.__name__: (w.tc_launches, w.simt_launches)
+              for w in (fa.flash_attn_fwd, fa.flash_attn_bwd)}
+    if counts != {n: (0, LAYERS) for n in counts}:
+        fail(f"f32 parity: B1 (tensor-core, SIMT) launches {counts} != "
+             f"(0, {LAYERS}) each: f32 must run the SIMT kernels")
     rel = abs(losses[0] - losses[1]) / abs(losses[1])
     if not rel <= 1e-5:
         fail(f"f32 parity: loss card {losses[0]} cpu {losses[1]} (rel {rel} "
@@ -786,8 +899,9 @@ def train_parity(torch, pkg):
              "> 1e-4")
     print(f"  loss card {losses[0]:.6f} cpu {losses[1]:.6f} (rel {rel:.2e}, "
           f"tol 1e-5); worst grad max|diff|/max|g| {worst:.2e} "
-          f"({worst_name}; tol 1e-4) over {len(grads[1])} parameters",
-          flush=True)
+          f"({worst_name}; tol 1e-4) over {len(grads[1])} parameters; B1 "
+          f"(tensor-core, SIMT) launches {counts}", flush=True)
+    return counts
 
 
 def _count_plain(mods):
@@ -864,8 +978,9 @@ def train_step(torch, pkg, steps=5, sp=1):
         losses = [step(ids, ids)]                # warm: allocations, cuBLAS
         torch.cuda.synchronize()
         plain, restore = _count_plain([fa, ce, fb])
-        fa.flash_attn_fwd.launches = fa.flash_attn_bwd.launches = 0
-        fb.flash_block_fwd.launches = fb.flash_block_bwd.launches = 0
+        attn = (fa.flash_attn_fwd, fa.flash_attn_bwd, fb.flash_block_fwd,
+                fb.flash_block_bwd)
+        reset_counts(*attn)
         ce.ce_fwd.launches = ce.ce_bwd.launches = 0
         try:
             t0 = time.perf_counter()
@@ -886,10 +1001,14 @@ def train_step(torch, pkg, steps=5, sp=1):
         want = {"flash_attn_fwd": b1, "flash_attn_bwd": b1,
                 "flash_block_fwd": b5, "flash_block_bwd": b5,
                 "ce_fwd": steps, "ce_bwd": steps}
-        if counts != want or any(plain.values()):
+        paths = {w.__name__: (w.tc_launches, w.simt_launches) for w in attn}
+        if counts != want or any(plain.values()) or paths != {
+                w.__name__: (want[w.__name__], 0) for w in attn}:
             fail(f"train step (sp={sp}) launches {counts} != {want} (= "
                  f"{steps} steps x {LAYERS} layers x 1, or x sp^2 = "
-                 f"{sp * sp} ring blocks / x 1), plain calls {plain}")
+                 f"{sp * sp} ring blocks / x 1), plain calls {plain}, "
+                 f"(tensor-core, SIMT) {paths}: every bf16 launch must take "
+                 "the tensor-core kernels")
         if sp > 1 and dist.last_ring_dispatch()["path"] != "kernel":
             fail(f"sp step dispatch {dist.last_ring_dispatch()}")
         ln_v = math.log(model.cfg.vocab_size)
@@ -907,8 +1026,8 @@ def train_step(torch, pkg, steps=5, sp=1):
             dist.set_mesh(None)
     print(f"  losses {['%.4f' % x for x in vals]} (warm step first); "
           f"{ms:.1f} ms/step, {B_SLICE * L_SLICE / (ms / 1e3):.0f} tokens/s "
-          f"(smoke number, {steps} steps); launches {counts}, plain calls "
-          f"{plain}; peak memory "
+          f"(smoke number, {steps} steps); launches {counts}, (tensor-core, "
+          f"SIMT) {paths}, plain calls {plain}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
     return counts, vals, ms
 
@@ -924,6 +1043,7 @@ def check_sp_attention(torch, pkg, S, devices, timing):
     gen = torch.Generator(device=dev).manual_seed(9)
     scale = 1.0 / D ** 0.5
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device=dev)
+    sp_paths = {}
     mesh = dist.init_mesh({"sp": SP}, devices=devices)
     where = "one card" if len(set(mesh.axis_devices("sp"))) == 1 else \
         f"{SP} cards"
@@ -943,8 +1063,8 @@ def check_sp_attention(torch, pkg, S, devices, timing):
                 leaves = [t.detach().clone().requires_grad_()
                           for t in (q, k, v)]
                 plain, restore = _count_plain([fa, fb])
-                fa.flash_attn_fwd.launches = fa.flash_attn_bwd.launches = 0
-                fb.flash_block_fwd.launches = fb.flash_block_bwd.launches = 0
+                reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd,
+                             fb.flash_block_fwd, fb.flash_block_bwd)
                 try:
                     out = fn(*leaves, causal=True)
                     grads = torch.autograd.grad(out, leaves, g)
@@ -959,6 +1079,11 @@ def check_sp_attention(torch, pkg, S, devices, timing):
                         "flash_block_bwd": per_call,
                         "flash_attn_fwd": 0, "flash_attn_bwd": 0}
                 disp = dist.last_ring_dispatch()
+                expect_path(f"{op}_attention {label}", fa, dt, D, path_counts(
+                    fb.flash_block_fwd, fb.flash_block_bwd), 2 * per_call)
+                sp_paths[(dt, op)] = {
+                    w.__name__: (w.tc_launches, w.simt_launches)
+                    for w in (fb.flash_block_fwd, fb.flash_block_bwd)}
                 if counts != want or any(plain.values()) or (
                         disp["path"], disp["op"]) != ("kernel", op) or any(
                         t.device != dev for t in (out,) + grads):
@@ -990,6 +1115,7 @@ def check_sp_attention(torch, pkg, S, devices, timing):
                       f"{b1_ms:.3f} ms", flush=True)
     finally:
         dist.set_mesh(None)
+    return sp_paths
 
 
 def post_all(url, prompts, max_new):
@@ -1185,6 +1311,22 @@ def main():
     print(f"  built {len(per)} libraries in {time.perf_counter() - t0:.2f} "
           "s (" + ", ".join(f"{n} {t:.2f} s" for n, t in per.items()) +
           f"; nvcc {_build.NVCC_FLAGS})", flush=True)
+    lib = _build.load("flash_attention_sm90", fa._TC_SIGNATURES)
+    for kernel, regs, spills in _build.ptxas_report("flash_attention_sm90"):
+        name = short_kernel_name(kernel)
+        print(f"  ptxas {name}: {regs}; {spills}; dynamic smem "
+              f"{tc_smem(lib, name)} B", flush=True)
+
+    if sys.argv[1:] == ["--sp-cards"]:
+        if torch.cuda.device_count() < SP:
+            fail(f"--sp-cards needs {SP} cards, found "
+                 f"{torch.cuda.device_count()}")
+        print(f"phase 13 alone: sequence-parallel attention, sp={SP}, one "
+              f"shard on each of cuda:0..{SP - 1}", flush=True)
+        check_sp_attention(torch, pkg, L_SLICE,
+                           [f"cuda:{i}" for i in range(SP)], timing=True)
+        print(card, flush=True)
+        return
 
     print("phase 3: kernels vs plain versions", flush=True)
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -1242,7 +1384,7 @@ def main():
 
     print("phase 7: training parity, f32 gpt_125m on the card vs the CPU",
           flush=True)
-    train_parity(torch, pkg)
+    parity_counts = train_parity(torch, pkg)
     torch.cuda.empty_cache()
 
     print("phase 8: training step, bf16 gpt_125m, AdamW multi_precision, "
@@ -1322,7 +1464,8 @@ def main():
 
     print(f"phase 13: sequence-parallel attention, sp={SP}, B={B_SLICE} "
           f"H={NKV} D={HD}", flush=True)
-    check_sp_attention(torch, pkg, L_SLICE, ["cuda:0"] * SP, timing=True)
+    sp_paths = check_sp_attention(torch, pkg, L_SLICE, ["cuda:0"] * SP,
+                                  timing=True)
     check_sp_attention(torch, pkg, B5_ODD_SL * SP, ["cuda:0"] * SP,
                        timing=False)
     if torch.cuda.device_count() >= SP:
@@ -1371,43 +1514,62 @@ def main():
          "library_ms": main_b3p["library_ms"]},
     ]
     b1_main = b1_errs[(torch.bfloat16, True, 0)]
+    b1_f32 = b1_errs[(torch.float32, True, 0)]
     b2_main = b2_errs[(8192, torch.bfloat16, None)]
-    for name, src, replaces, err, row in (
-            ("flash_attn_fwd", "flash_attention.cu",
-             "paddle_tpu/nn/functional/flash_attention.py:134",
-             max(b1_main["out"], b1_main["lse"]), b1_rows[("bf16", "fwd")]),
-            ("flash_attn_bwd", "flash_attention.cu",
-             "paddle_tpu/nn/functional/flash_attention.py:134",
+    b1_src = "paddle_tpu/nn/functional/flash_attention.py:134"
+    # (name, source, replaces, max error, timing row, launches): bf16 B1 on
+    # the tensor cores (phase 8), f32 B1 on the SIMT kernels (phase 7)
+    for name, src, replaces, err, row, n in (
+            ("flash_attn_fwd", "flash_attention_sm90.cu", b1_src,
+             max(b1_main["out"], b1_main["lse"]), b1_rows[("bf16", "fwd")],
+             train_counts["flash_attn_fwd"]),
+            ("flash_attn_bwd", "flash_attention_sm90.cu", b1_src,
              max(b1_main["dq"], b1_main["dk"], b1_main["dv"]),
-             b1_rows[("bf16", "bwd")]),
+             b1_rows[("bf16", "bwd")], train_counts["flash_attn_bwd"]),
+            ("flash_attn_fwd_f32", "flash_attention.cu", b1_src,
+             max(b1_f32["out"], b1_f32["lse"]), b1_rows[("f32", "fwd")],
+             parity_counts["flash_attn_fwd"][1]),
+            ("flash_attn_bwd_f32", "flash_attention.cu", b1_src,
+             max(b1_f32["dq"], b1_f32["dk"], b1_f32["dv"]),
+             b1_rows[("f32", "bwd")], parity_counts["flash_attn_bwd"][1]),
             ("ce_fwd", "fused_ce.cu", "paddle_tpu/kernels/fused_ce.py:172",
-             max(b2_main["per"], b2_main["lse"]), b2_rows[("bf16", "fwd")]),
+             max(b2_main["per"], b2_main["lse"]), b2_rows[("bf16", "fwd")],
+             train_counts["ce_fwd"]),
             ("ce_bwd", "fused_ce.cu", "paddle_tpu/kernels/fused_ce.py:210",
-             b2_main["dlogits"], b2_rows[("bf16", "bwd")])):
+             b2_main["dlogits"], b2_rows[("bf16", "bwd")],
+             train_counts["ce_bwd"])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": train_counts[name],
+            "replaces": replaces, "launches": n,
             "max_abs_err": err, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # B5: bf16 on the tensor cores (phase 14's sp step), f32 on the SIMT
+    # kernels (phase 13's f32 ring and Ulysses calls on one card)
     for name, kind, replaces in (
             ("flash_block_attention", "fwd",
              "paddle_tpu/kernels/flash_block.py:348"),
             ("flash_block_attention_bwd", "bwd",
              "paddle_tpu/kernels/flash_block.py:386")):
-        row = b5_rows[("bf16", "past", kind)]
-        err = b5_errs[("bf16", "past")]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
-            "replaces": replaces,
-            "launches": sp_counts[f"flash_block_{kind}"],
-            "max_abs_err": max(err["out"], err["lse"]) if kind == "fwd"
-            else max(err["dq"], err["dk"], err["dv"]),
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
+        for label, src, n in (
+                ("bf16", "flash_attention_sm90.cu",
+                 sp_counts[f"flash_block_{kind}"]),
+                ("f32", "flash_attention.cu",
+                 sum(sp_paths[(torch.float32, op)][f"flash_block_{kind}"][1]
+                     for op in ("ring", "ulysses")))):
+            row = b5_rows[(label, "past", kind)]
+            err = b5_errs[(label, "past")]
+            kernels.append({
+                "name": name + ("" if label == "bf16" else "_f32"),
+                "route": "cuda",
+                "source": f"paddle_tpu_torch/kernels/csrc/{src}",
+                "replaces": replaces, "launches": n,
+                "max_abs_err": max(err["out"], err["lse"]) if kind == "fwd"
+                else max(err["dq"], err["dk"], err["dv"]),
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]})
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -5,7 +5,9 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds), placed in ``kernels/_build/`` (git-ignored) under a name keyed
 by a hash of the source and the flags: an edited source rebuilds, an
 unchanged one loads the library already there. ``build()`` starts one
-``nvcc`` per missing library, all at once.
+``nvcc`` per missing library, all at once. The compiler's output, with
+ptxas's registers, shared memory and spills of every kernel (``-Xptxas
+-v``), is kept beside each library (``ptxas_report``).
 
 There is no fallback: when ``nvcc`` is missing or a build fails this
 module raises. The CPU path never comes here — kernel wrappers run their
@@ -22,11 +24,12 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build", "load"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build", "load", "ptxas_report"]
 
-SOURCES = ("mega_decode", "cache_write", "flash_attention", "fused_ce")
+SOURCES = ("mega_decode", "cache_write", "flash_attention",
+           "flash_attention_sm90", "fused_ce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -79,10 +82,29 @@ def build(names=SOURCES) -> dict:
                           f"{log.decode(errors='replace')}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_bytes(log)
             os.replace(tmp, out)       # atomic: readers never see half a file
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return seconds
+
+
+def ptxas_report(name: str) -> list:
+    """ptxas's report for each kernel of ``csrc/<name>.cu`` from its last
+    build: [(mangled kernel name, its "N registers, ..." text, its stack
+    and spill line)]. Dynamic shared memory is not in it: the source says
+    what each kernel asks for."""
+    log = _lib_path(name).with_suffix(".log")
+    rows, kernel, spills = [], None, ""
+    for line in log.read_text(errors="replace").splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "bytes spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and kernel:
+            rows.append((kernel, line.split("Used")[1].strip(), spills))
+            kernel = None
+    return rows
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

@@ -4,21 +4,38 @@ log-sum-exp, with runtime query/key offsets for causal masking.
 Port of the TPU kernel behind paddle_tpu/nn/functional/flash_attention.py:
 ``_pallas_flash`` (the library Pallas flash-attention kernel and its
 backward); the math is the one paddle_tpu writes out in
-kernels/flash_block.py (``_fwd``, ``_bwd``, ``compute_delta``). The CUDA
-kernels are ``csrc/flash_attention.cu``: a 64-row tile per block, the
-online softmax in registers, f32 FMAs on the CUDA cores (see the source
-note for the bound and the design).
+kernels/flash_block.py (``_fwd``, ``_bwd``, ``compute_delta``). Two CUDA
+paths, chosen by ``_tc_path`` from the dtype and D alone:
 
-Launches per wrapper call (each call counts once in ``.launches``):
-``flash_attn_fwd`` issues one device launch; ``flash_attn_bwd`` issues
-two, the dQ pass (which also computes ``delta = rowsum(dO * O)``) and
-then the dK/dV pass.
+=================  =================================================
+inputs             kernels
+=================  =================================================
+bf16, D 64 or 128  ``csrc/flash_attention_sm90.cu``: wgmma on the
+                   tensor cores, TMA-fed K/V rings (``*_tc_launch``)
+f32; bf16 at       ``csrc/flash_attention.cu``: f32 FMAs on the CUDA
+another D          cores, a 64-row tile per block (``*_launch``)
+=================  =================================================
+
+Launches per wrapper call (each call counts once in ``.launches`` and once
+in its path's ``.tc_launches`` or ``.simt_launches``): ``flash_attn_fwd``
+issues one device launch; ``flash_attn_bwd`` issues two, the dQ pass
+(which also computes ``delta = rowsum(dO * O)``) and then the dK/dV pass.
 
 Contract, as flash_block's: f32 accumulation; a row whose every key is
 masked returns ``out = 0``, ``lse = -inf`` and zero gradients. ``q_off``
 and ``k_off`` are the global positions of ``q[0]`` and ``k[0]``; causal
 keeps ``q_off + i >= k_off + j`` (top-left aligned at 0/0). The LSE is
 ``[B, H, Sq]`` f32 (not the TPU's lane-broadcast ``[.., 128]`` form).
+
+Precision: both paths take every product as an f32 product of the inputs,
+as paddle_tpu's B5 kernels do (kernels/flash_block.py's ``_fwd_kernel`` and
+``_bwd`` widen q, k and v to f32); the tensor-core kernels carry P and dS
+into their bf16 products as bf16 parts: P in the forward as three (within
+2^-24, as f32: out feeds the backward's ``delta``), P and dS in the
+backward as two (within 2^-16).
+``_pallas_flash`` rounds P and dS to bf16 there instead; the kernels
+compute its function at least as precisely. So one plain version, f32
+products with the result cast to the inputs' dtype, holds both paths.
 """
 from __future__ import annotations
 
@@ -34,14 +51,54 @@ __all__ = ["flash_attn_fwd", "flash_attn_bwd", "flash_attn_fwd_plain",
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 128
+_TC_HEAD_DIMS = (64, 128)
 _NEG_INF = float("-inf")
 _GEO = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-# one table for the library: kernels/flash_block.py (B5) loads it too, and
-# a library's signatures are applied once, at its first load
+# one table per library: kernels/flash_block.py (B5) loads them too, and a
+# library's signatures are applied once, at its first load
 _SIGNATURES = {
     "flash_fwd_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + _GEO),
     "flash_bwd_launch": (ctypes.c_int, [ctypes.c_void_p] * 10 + _GEO),
     "flash_block_bwd_launch": (ctypes.c_int, [ctypes.c_void_p] * 9 + _GEO)}
+_TC_SIGNATURES = {
+    "flash_fwd_tc_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + _GEO),
+    "flash_bwd_tc_launch": (ctypes.c_int, [ctypes.c_void_p] * 10 + _GEO),
+    "flash_block_bwd_tc_launch": (ctypes.c_int,
+                                  [ctypes.c_void_p] * 9 + _GEO),
+    "flash_tc_smem_bytes": (ctypes.c_int, [ctypes.c_int] * 3)}
+
+
+def _tc_path(dtype, D) -> bool:
+    """True where the tensor-core kernels run (bf16, D 64 or 128), False
+    where the SIMT ones do (f32, or bf16 at another D). Decided from dtype
+    and D alone, never from a failure: a refused launch raises."""
+    return dtype == torch.bfloat16 and int(D) in _TC_HEAD_DIMS
+
+
+def _entry(tc, name):
+    """The C entry ``name`` (``<name>_tc_launch`` on the tensor-core path,
+    ``<name>_launch`` on the SIMT one) of its library, built at first use."""
+    if tc:
+        return getattr(_build.load("flash_attention_sm90", _TC_SIGNATURES),
+                       f"{name}_tc_launch")
+    return getattr(_build.load("flash_attention", _SIGNATURES),
+                   f"{name}_launch")
+
+
+def _require_tma_aligned(op, **tensors):
+    """The tensor-core path reads these by TMA: 16-byte aligned bases."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} must be 16-byte aligned on the "
+                             "tensor-core path (TMA)")
+
+
+def _count(wrapper, tc):
+    wrapper.launches += 1
+    if tc:
+        wrapper.tc_launches += 1
+    else:
+        wrapper.simt_launches += 1
 
 
 def _acc(t):
@@ -127,33 +184,45 @@ def _geo(BH, Sq, Sk, D, causal, q_off, k_off, sm_scale, dtype):
 def flash_attn_fwd(q, k, v, causal, sm_scale, q_off=0, k_off=0):
     """Attention forward. q [B, H, Sq, D], k/v [B, H, Sk, D], f32 or bf16
     (one dtype), D <= 128, contiguous, one device. On CUDA tensors
-    launches the kernel (counted in ``flash_attn_fwd.launches``); on CPU
-    tensors runs ``flash_attn_fwd_plain``. Returns (out [B, H, Sq, D] at
-    q's dtype, lse [B, H, Sq] f32)."""
+    launches the kernel of the path ``_tc_path`` picks (module docstring;
+    counted in ``flash_attn_fwd.launches`` and ``.tc_launches`` or
+    ``.simt_launches``); on CPU tensors runs ``flash_attn_fwd_plain``.
+    Returns (out [B, H, Sq, D] at q's dtype, lse [B, H, Sq] f32)."""
     dev = common_device("flash_attn_fwd", q, k, v)
     if dev.type == "cpu":
         return flash_attn_fwd_plain(q, k, v, causal, sm_scale, q_off, k_off)
-    BH, Sq, Sk, D = _check("flash_attn_fwd", q, k, v)
-    require_contiguous("flash_attn_fwd", q=q, k=k, v=v)
-    lib = _build.load("flash_attention", _SIGNATURES)
+    out, lse, tc = _launch_fwd("flash_attn_fwd", q, k, v, causal, sm_scale,
+                               q_off, k_off, dev)
+    _count(flash_attn_fwd, tc)
+    return out, lse
+
+
+def _launch_fwd(op, q, k, v, causal, sm_scale, q_off, k_off, dev):
+    """One forward launch on ``dev`` (B1's, or B5's at a block's offsets):
+    (out, lse, whether the tensor-core path ran)."""
+    BH, Sq, Sk, D = _check(op, q, k, v)
+    require_contiguous(op, q=q, k=k, v=v)
+    tc = _tc_path(q.dtype, D)
+    if tc:
+        _require_tma_aligned(op, q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.flash_fwd_launch(
+        rc = _entry(tc, "flash_fwd")(
             ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse),
             *_geo(BH, Sq, Sk, D, causal, q_off, k_off, sm_scale, q.dtype),
             stream_ptr(dev))
-    check_launch("flash_attn_fwd", rc)
-    flash_attn_fwd.launches += 1
-    return out, lse
+    check_launch(op, rc)
+    return out, lse, tc
 
 
 def flash_attn_bwd(q, k, v, out, lse, do, causal, sm_scale, q_off=0,
                    k_off=0):
     """Attention backward against the forward's (out, lse). Shapes and
     dtypes as ``flash_attn_fwd``; out and do like q; lse [B, H, Sq] f32.
-    On CUDA tensors launches the two kernels (counted once in
-    ``flash_attn_bwd.launches``); on CPU tensors runs
+    On CUDA tensors launches the two kernels of the path ``_tc_path``
+    picks (counted once in ``flash_attn_bwd.launches`` and in
+    ``.tc_launches`` or ``.simt_launches``); on CPU tensors runs
     ``flash_attn_bwd_plain``. Returns (dq, dk, dv)."""
     dev = common_device("flash_attn_bwd", q, k, v, out, lse, do)
     if dev.type == "cpu":
@@ -169,19 +238,21 @@ def flash_attn_bwd(q, k, v, out, lse, do, causal, sm_scale, q_off=0,
             f"for q {q.dtype}{tuple(q.shape)}")
     require_contiguous("flash_attn_bwd", q=q, k=k, v=v, out=out, lse=lse,
                        do=do)
-    lib = _build.load("flash_attention", _SIGNATURES)
+    tc = _tc_path(q.dtype, D)
+    if tc:
+        _require_tma_aligned("flash_attn_bwd", q=q, k=k, v=v, do=do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.flash_bwd_launch(
+        rc = _entry(tc, "flash_bwd")(
             ptr(q), ptr(k), ptr(v), ptr(out), ptr(do), ptr(lse), ptr(delta),
             ptr(dq), ptr(dk), ptr(dv),
             *_geo(BH, Sq, Sk, D, causal, q_off, k_off, sm_scale, q.dtype),
             stream_ptr(dev))
     check_launch("flash_attn_bwd", rc)
-    flash_attn_bwd.launches += 1
+    _count(flash_attn_bwd, tc)
     return dq, dk, dv
 
 
-flash_attn_fwd.launches = 0
-flash_attn_bwd.launches = 0
+for _w in (flash_attn_fwd, flash_attn_bwd):
+    _w.launches = _w.tc_launches = _w.simt_launches = 0

@@ -7,20 +7,27 @@ Port of paddle_tpu/kernels/flash_block.py (``flash_block_attention``
 ``:348``, ``flash_block_attention_bwd`` ``:386``, ``flash_attention_lse``
 ``:401``, whose Pallas kernels are ``_fwd`` ``:114`` and ``_bwd`` ``:244``).
 On the TPU these are kernels of their own because the library flash kernel
-hides the LSE. On the card B1's source (``csrc/flash_attention.cu``)
-already returns it and takes runtime offsets, so:
+hides the LSE. On the card B1's kernels already return it and take runtime
+offsets, so B5 runs B1's device code, on B1's two paths (``_tc_path``:
+bf16 with D 64 or 128 on the tensor cores, ``csrc/flash_attention_sm90.cu``;
+f32 and other D on the SIMT kernels, ``csrc/flash_attention.cu``):
 
-- the forward is ``flash_fwd_launch`` as B1 uses it; a block wholly in
-  the causal future skips every key tile and gives ``out = 0``, ``lse =
-  -inf`` (the merge identity);
-- the backward is ``flash_block_bwd_launch``: B1's two passes (dQ, then
-  dK/dV) against a ``delta`` the caller gives, which the dQ pass reads
-  instead of computing ``rowsum(dO * O)`` and writing it. A ring hoists
-  one ``delta`` per layer out of its sp block steps; one block's own
-  backward folds its lse cotangent into it (``compute_delta``).
+- the forward is B1's forward entry (``flash_fwd_tc_launch`` /
+  ``flash_fwd_launch``); a block wholly in the causal future loads nothing
+  and gives ``out = 0``, ``lse = -inf`` (the merge identity);
+- the backward is ``flash_block_bwd_tc_launch`` / ``flash_block_bwd_launch``:
+  B1's two passes (dQ, then dK/dV) against a ``delta`` the caller gives,
+  which the dQ pass reads instead of computing ``rowsum(dO * O)`` and
+  writing it (on the tensor-core path a block no query sees takes one
+  launch that writes zero grads). A ring hoists one ``delta`` per layer
+  out of its sp block steps; one block's own backward folds its lse
+  cotangent into it (``compute_delta``). The plain versions are B1's
+  (f32 products, as paddle_tpu's ``_fwd_kernel`` and ``_bwd`` take
+  them).
 
 Launch counters are B5's own (``flash_block_fwd.launches``,
-``flash_block_bwd.launches``, one per wrapper call; the backward issues two
+``flash_block_bwd.launches``, one per wrapper call, each also counted in
+``.tc_launches`` or ``.simt_launches`` by path; the backward issues two
 device launches), apart from B1's, so a run shows which path it took.
 ``compute_delta`` and ``merge_lse_blocks`` are XLA code in paddle_tpu and
 plain PyTorch here. Layout ``(B, H, S, D)``; ``lse`` and ``delta`` are
@@ -30,8 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from . import (_build, check_launch, common_device, ptr, require_contiguous,
-               stream_ptr)
+from . import check_launch, common_device, ptr, require_contiguous, stream_ptr
 from . import flash_attention as _fa
 
 __all__ = ["flash_block_attention", "flash_block_attention_bwd",
@@ -61,24 +67,16 @@ def flash_block_bwd_plain(q, k, v, q_off, k_off, lse, do, delta, causal,
 def flash_block_fwd(q, k, v, q_off, k_off, causal, sm_scale):
     """Block forward. q [B, H, Sq, D], k/v [B, H, Sk, D], f32 or bf16 (one
     dtype), D <= 128, contiguous, one device; ``q_off``/``k_off`` the
-    global positions of q[0]/k[0]. On CUDA tensors launches B5's forward
-    (counted in ``flash_block_fwd.launches``); on CPU tensors runs
+    global positions of q[0]/k[0]. On CUDA tensors launches B5's forward on
+    the path ``_tc_path`` picks (counted in ``flash_block_fwd.launches``
+    and ``.tc_launches`` or ``.simt_launches``); on CPU tensors runs
     ``flash_block_fwd_plain``. Returns (out at q's dtype, lse f32)."""
     dev = common_device("flash_block_fwd", q, k, v)
     if dev.type == "cpu":
         return flash_block_fwd_plain(q, k, v, q_off, k_off, causal, sm_scale)
-    BH, Sq, Sk, D = _fa._check("flash_block_fwd", q, k, v)
-    require_contiguous("flash_block_fwd", q=q, k=k, v=v)
-    lib = _build.load("flash_attention", _fa._SIGNATURES)
-    out = torch.empty_like(q)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.flash_fwd_launch(
-            ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse),
-            *_fa._geo(BH, Sq, Sk, D, causal, q_off, k_off, sm_scale,
-                      q.dtype), stream_ptr(dev))
-    check_launch("flash_block_fwd", rc)
-    flash_block_fwd.launches += 1
+    out, lse, tc = _fa._launch_fwd("flash_block_fwd", q, k, v, causal,
+                                   sm_scale, q_off, k_off, dev)
+    _fa._count(flash_block_fwd, tc)
     return out, lse
 
 
@@ -86,8 +84,9 @@ def flash_block_bwd(q, k, v, q_off, k_off, lse, do, delta, causal,
                     sm_scale):
     """Block backward against global residuals: q/k/v as
     ``flash_block_fwd``, do like q, lse and delta [B, H, Sq] f32 (read
-    only). On CUDA tensors launches B5's two backward kernels (counted
-    once in ``flash_block_bwd.launches``); on CPU tensors runs
+    only). On CUDA tensors launches B5's two backward kernels on the path
+    ``_tc_path`` picks (counted once in ``flash_block_bwd.launches`` and
+    in ``.tc_launches`` or ``.simt_launches``); on CPU tensors runs
     ``flash_block_bwd_plain``. Returns (dq, dk, dv)."""
     dev = common_device("flash_block_bwd", q, k, v, lse, do, delta)
     if dev.type == "cpu":
@@ -104,21 +103,23 @@ def flash_block_bwd(q, k, v, q_off, k_off, lse, do, delta, causal,
             f"{tuple(delta.shape)} for q {q.dtype}{tuple(q.shape)}")
     require_contiguous("flash_block_bwd", q=q, k=k, v=v, lse=lse, do=do,
                        delta=delta)
-    lib = _build.load("flash_attention", _fa._SIGNATURES)
+    tc = _fa._tc_path(q.dtype, D)
+    if tc:
+        _fa._require_tma_aligned("flash_block_bwd", q=q, k=k, v=v, do=do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(dev):
-        rc = lib.flash_block_bwd_launch(
+        rc = _fa._entry(tc, "flash_block_bwd")(
             ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
             ptr(dk), ptr(dv),
             *_fa._geo(BH, Sq, Sk, D, causal, q_off, k_off, sm_scale,
                       q.dtype), stream_ptr(dev))
     check_launch("flash_block_bwd", rc)
-    flash_block_bwd.launches += 1
+    _fa._count(flash_block_bwd, tc)
     return dq, dk, dv
 
 
-flash_block_fwd.launches = 0
-flash_block_bwd.launches = 0
+for _w in (flash_block_fwd, flash_block_bwd):
+    _w.launches = _w.tc_launches = _w.simt_launches = 0
 
 
 def compute_delta(out, do, dlse=None):

@@ -198,3 +198,130 @@ def test_attention_dropout_in_training_not_ported():
         TF.flash_attention(q, k, v, dropout=0.1, causal=True)
     # evaluation ignores the rate, as paddle_tpu's does
     TF.flash_attention(q, k, v, dropout=0.1, causal=True, training=False)
+
+
+# ---------------------------------------------------------------- precision
+# Both kernel paths take every product as an f32 product of the inputs; the
+# plain versions are the f32 formula on the widened inputs, the result cast
+# to the inputs' dtype, for f32 and bf16 alike.
+
+def _formula_fwd(q, k, v, causal, scale, q_off, k_off):
+    """The rounding-free forward, written out: f32 scores, softmax, p V."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if causal:
+        qi = torch.arange(q.shape[2])[:, None] + q_off
+        ki = torch.arange(k.shape[2])[None, :] + k_off
+        s = torch.where(qi >= ki, s, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(m == float("-inf"), 0.0, m)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.matmul(p, v) / torch.where(l == 0, 1.0, l)
+    lse = torch.where(l == 0, float("-inf"), m + torch.log(l))[..., 0]
+    return out, lse, s
+
+
+def _formula_bwd(q, k, v, out, lse, do, s, scale):
+    lse = torch.where(lse == float("-inf"), 0.0, lse)
+    p = torch.exp(s - lse[..., None])
+    delta = (do * out).sum(-1)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    return (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv)
+
+
+@pytest.mark.parametrize("causal,q_off,k_off", [(True, 0, 0), (False, 0, 0),
+                                                (True, 128, 0), (True, 0, 64)])
+def test_f32_plain_versions_round_nothing(causal, q_off, k_off):
+    """f32 inputs: the plain forward and backward equal the rounding-free
+    formula bit for bit."""
+    q, k, v, do = _t(*_qkv(B=1, H=2, Sq=256, seed=21))
+    scale = 0.125
+    out, lse = tfa.flash_attn_fwd_plain(q, k, v, causal, scale, q_off, k_off)
+    f_out, f_lse, s = _formula_fwd(q, k, v, causal, scale, q_off, k_off)
+    assert torch.equal(out, f_out) and torch.equal(lse, f_lse)
+    got = tfa.flash_attn_bwd_plain(q, k, v, out, lse, do, causal, scale,
+                                   q_off, k_off)
+    for g, w in zip(got, _formula_bwd(q, k, v, out, lse, do, s, scale)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("causal,q_off,k_off", [(True, 0, 0), (False, 0, 0),
+                                                (True, 128, 0), (True, 0, 64)])
+def test_bf16_plain_versions_are_the_f32_products_cast(causal, q_off, k_off):
+    """bf16 inputs (B 1, H 2, S 256, D 64): the plain forward and backward
+    equal the rounding-free formula on the widened inputs, cast to bf16,
+    bit for bit (the backward from the bf16 out, as the kernel's)."""
+    q, k, v, do = (t.to(torch.bfloat16)
+                   for t in _t(*_qkv(B=1, H=2, Sq=256, seed=41 + q_off)))
+    scale = 0.125
+    out, lse = tfa.flash_attn_fwd_plain(q, k, v, causal, scale, q_off, k_off)
+    wide = [t.float() for t in (q, k, v)]
+    f_out, f_lse, s = _formula_fwd(*wide, causal, scale, q_off, k_off)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert torch.equal(out, f_out.bfloat16()) and torch.equal(lse, f_lse)
+    got = tfa.flash_attn_bwd_plain(q, k, v, out, lse, do, causal, scale,
+                                   q_off, k_off)
+    want = _formula_bwd(*wide, out.float(), lse, do.float(), s, scale)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, w.bfloat16())
+
+
+def _close_bf16(got, want):
+    """One bf16 step of each entry (2^-7 of its size), and of a typical
+    entry (the median |want|) for entries whose f32 sums cancel to near 0:
+    each side rounds its own f32 result to bf16."""
+    got = got.float().numpy()
+    want = np.asarray(want, dtype=np.float32)
+    atol = 2.0 ** -7 * float(np.median(np.abs(want)))
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=atol)
+
+
+@pytest.mark.parametrize("S", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_plain_matches_pallas_interpret(S, causal):
+    """bf16 inputs: the wrappers on CPU tensors (the plain versions, f32
+    products) against paddle_tpu's blockwise Pallas kernel in interpret
+    mode, which widens q, k and v to f32, forward and backward."""
+    q, k, v, do = (x.astype(jnp.bfloat16)
+                   for x in map(jnp.asarray, _qkv(B=1, Sq=S, seed=7 + S)))
+    scale = 1.0 / 8.0
+
+    def f(q_, k_, v_):
+        return flash_attention_lse(q_, k_, v_, causal=causal,
+                                   sm_scale=scale, interpret=True)
+
+    @jax.jit
+    def fwd_bwd(q_, k_, v_, do_):
+        (o, lse), vjp = jax.vjp(f, q_, k_, v_)
+        return (o, lse) + vjp((do_, jnp.zeros_like(lse)))
+
+    jo, jl, *jgrads = fwd_bwd(q, k, v, do)
+    tq, tk, tv, tdo = (torch.from_numpy(np.asarray(x, np.float32))
+                       .to(torch.bfloat16) for x in (q, k, v, do))
+    out, lse = tfa.flash_attn_fwd(tq, tk, tv, causal, scale)
+    assert jo.dtype == jnp.bfloat16 and out.dtype == torch.bfloat16
+    _close_bf16(out, jo)
+    _close(lse, jl)
+    grads = tfa.flash_attn_bwd(tq, tk, tv, out, lse, tdo, causal, scale)
+    for got, want in zip(grads, jgrads):
+        assert got.dtype == torch.bfloat16
+        _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
+def test_tc_path_rule(dtype, D):
+    """The wrappers' path table: bf16 at D 64 or 128 on the tensor-core
+    kernels, everything else on the SIMT ones; on CPU tensors neither
+    counts a launch."""
+    assert tfa._tc_path(dtype, D) == (dtype == torch.bfloat16
+                                      and D in (64, 128))
+    q, k, v, do = (t.to(dtype) for t in _t(*_qkv(B=1, H=1, Sq=16, D=D)))
+    for w in (tfa.flash_attn_fwd, tfa.flash_attn_bwd):
+        w.launches = w.tc_launches = w.simt_launches = 0
+    out, lse = tfa.flash_attn_fwd(q, k, v, True, 0.125)
+    tfa.flash_attn_bwd(q, k, v, out, lse, do, True, 0.125)
+    assert all((w.launches, w.tc_launches, w.simt_launches) == (0, 0, 0)
+               for w in (tfa.flash_attn_fwd, tfa.flash_attn_bwd))

@@ -54,10 +54,14 @@ def _close_lse(got, want):
 
 @pytest.fixture(autouse=True)
 def zero_counters():
-    tfb.flash_block_fwd.launches = tfb.flash_block_bwd.launches = 0
+    wrappers = (tfb.flash_block_fwd, tfb.flash_block_bwd)
+    for w in wrappers:
+        w.launches = w.tc_launches = w.simt_launches = 0
     yield
-    # CPU tensors run the plain versions: no kernel launch is counted
-    assert tfb.flash_block_fwd.launches == tfb.flash_block_bwd.launches == 0
+    # CPU tensors run the plain versions: no kernel launch is counted, on
+    # either path
+    assert all((w.launches, w.tc_launches, w.simt_launches) == (0, 0, 0)
+               for w in wrappers)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -197,3 +201,78 @@ def test_bf16_block_keeps_dtypes():
     np.testing.assert_allclose(out.float().detach().numpy(),
                                want.detach().numpy(), rtol=2.0 ** -8,
                                atol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("D", [64, 32])
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_block_plain_is_b1s_at_its_offsets(case, D):
+    """B5's bf16 plain versions are B1's at the block's offsets, bit for
+    bit, on the tensor-core path (D 64) and the SIMT one (D 32) alike: the
+    f32-product results (inputs widened) cast to bf16."""
+    q_off, k_off, causal = CASES[case]
+    q, k, v, do = (t.to(torch.bfloat16) for t in _t(*_arrays(
+        11 + D, *[(B, H, SL, D)] * 4)))
+    out, lse = tfb.flash_block_fwd_plain(q, k, v, q_off, k_off, causal,
+                                         SCALE)
+    want, want_lse = tfb._fa.flash_attn_fwd_plain(q, k, v, causal, SCALE,
+                                                  q_off, k_off)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    wide, wide_lse = tfb.flash_block_fwd_plain(q.float(), k.float(),
+                                               v.float(), q_off, k_off,
+                                               causal, SCALE)
+    assert torch.equal(out, wide.bfloat16()) and torch.equal(lse, wide_lse)
+    delta = tfb.compute_delta(out, do)
+    grads = tfb.flash_block_bwd_plain(q, k, v, q_off, k_off, lse, do, delta,
+                                      causal, SCALE)
+    wide_g = tfb.flash_block_bwd_plain(q.float(), k.float(), v.float(),
+                                       q_off, k_off, lse, do.float(), delta,
+                                       causal, SCALE)
+    for g, w in zip(grads, wide_g):
+        assert torch.equal(g, w.bfloat16())
+
+
+def _close_bf16(got, want):
+    """One bf16 step of each entry (2^-7 of its size), and of a typical
+    entry (the median |want|) for entries whose f32 sums cancel to near 0:
+    each side rounds its own f32 result to bf16."""
+    got = got.detach().float().numpy()
+    want = np.asarray(want, dtype=np.float32)
+    atol = 2.0 ** -7 * float(np.median(np.abs(want)))
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=atol)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_block_matches_pallas_interpret(case):
+    """bf16 inputs: ``flash_block_attention`` on CPU tensors (B5's plain
+    versions) against paddle_tpu's ``flash_block_attention`` in interpret
+    mode, whose kernels widen q, k and v to f32: (out, lse) and the grads
+    under a loss that reads both outputs."""
+    q_off, k_off, causal = CASES[case]
+    q, k, v, do = (jnp.asarray(x).astype(jnp.bfloat16) for x in _arrays(
+        31 + list(CASES).index(case), *[(B, H, SL, D)] * 4))
+    (dlse,) = _arrays(8, (B, H, SL))
+
+    @jax.jit
+    def fwd_bwd(q_, k_, v_, do_, dlse_):
+        def f(a, b, c):
+            return jfb.flash_block_attention(a, b, c, q_off, k_off, causal,
+                                             SCALE, 64, 64, True)
+        (o, lse), vjp = jax.vjp(f, q_, k_, v_)
+        return (o, lse) + vjp((do_, dlse_))
+
+    jo, jl, *jgrads = fwd_bwd(q, k, v, do, dlse)
+    tq, tk, tv = (torch.from_numpy(np.asarray(x, np.float32))
+                  .to(torch.bfloat16).requires_grad_() for x in (q, k, v))
+    tdo = torch.from_numpy(np.asarray(do, np.float32)).to(torch.bfloat16)
+    (tdlse,) = _t(dlse)
+    out, lse = tfb.flash_block_attention(tq, tk, tv, q_off, k_off, causal,
+                                         SCALE)
+    assert jo.dtype == jnp.bfloat16 and out.dtype == torch.bfloat16
+    _close_bf16(out, jo)
+    _close_lse(lse, jl)
+    grads = torch.autograd.grad((out.float() * tdo.float()).sum() +
+                                torch.where(lse.isfinite(), lse * tdlse,
+                                            0.0).sum(), (tq, tk, tv))
+    for got, want in zip(grads, jgrads):
+        assert got.dtype == torch.bfloat16
+        _close_bf16(got, want)
