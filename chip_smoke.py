@@ -16,10 +16,16 @@ failure:
    events, L2 flushed before each launch) and the least time the card
    could take (bytes over 3.35 TB/s, operations over the peak for their
    type: 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32).
-   Serving (gpt_125m: B=8, L=1024, 12 heads of 64): mega decode (B4), slot
-   write (B3); paged write (B3 paged) into a [512, 16, 12, 64] pool at the
-   decode shape (n = 8 rows) and an admission shape (n = 512), bf16/f32
-   pages, int8 pages and their f32 scale plane, bit-exact. Training
+   Serving (gpt_125m: B=8, L=1024, 12 heads of 64): mega decode (B4) with
+   f32 / bf16 q and caches, at positions that include its chunk edges, and
+   at GQA g = 2, 4, 8 and head sizes 36, 33 and 256 (rows that take 8-, 4-
+   and 2-byte loads), timed with a bf16 and an f32 cache, serving-like and
+   full, beside SDPA and three floors (a one-element fill; B4 at pos =
+   -1, which reads nothing; torch.sum over the full cache's bytes);
+   slot write (B3); paged write (B3 paged) into a [512, 16, 12, 64] pool
+   at the decode shape (n = 8 rows) and an admission shape (n = 512),
+   bf16/f32 pages, int8 pages and their f32 scale plane, bit-exact.
+   Training
    (gpt_125m at batch 8 x seq 1024): flash attention forward and backward
    (B1) at B=8, H=12, S=1024, D=64, bf16 on the tensor-core kernels and
    f32 on the SIMT ones (each launch's path checked by its counters), both
@@ -29,17 +35,18 @@ failure:
    step of phase 14: B=8, H=12, 256-row shards, D=64): the blockwise flash
    forward and backward (B5) on a diagonal, a past, a future (out 0, lse
    -inf, zero grads) and a non-causal block, bf16 and f32 (paths and
-   limits as B1's; aten flash's error against the f32 products beside),
-   the backward against a given delta with a nonzero lse cotangent folded
-   in; then,
-   untimed, the same kind of blocks (and one with the causal edge
-   across every tile) at 250-row shards and offsets off every multiple
-   of 64.
+   limits as B1's; aten flash's error against the f32 products beside;
+   timed beside aten flash, bf16, and aten's memory-efficient attention,
+   f32), the backward against a given delta with a nonzero lse cotangent
+   folded in; then, untimed, the same kind of blocks (and one with the
+   causal edge across every tile) at 250-row shards and offsets off every
+   multiple of 64.
 4. serving, bf16 cache: gpt_125m with seeded random weights behind
    ContinuousBatchingEngine(slots=8, max_len=1024, tick_tokens=8) and
    PredictorServer; 8 concurrent POST /generate. The mega-decode launch
    count must equal ticks x tick_tokens x 12 layers. The same requests
-   run once more under torch.profiler (device busy share, top kernels).
+   run once more under torch.profiler (device busy share, top kernels,
+   B4's device time).
 5. serving, f32 cache: 4 requests, tokens identical to the sequential
    greedy generate() of a CPU copy of the same weights (a differing token
    is accepted only where the CPU oracle's top-2 logit margin is < 1e-4).
@@ -169,50 +176,84 @@ def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# (nh, nkv, hd) of B4's further cases: GQA at g = 2, 4, 8, head sizes whose
+# row is no multiple of 16 bytes in bf16 (36: 8-byte loads; 33: 2-byte
+# loads, 4-byte in f32) and the largest head size
+B4_CASES = ((24, 12, 64), (32, 8, 128), (64, 8, 128), (12, 12, 36),
+            (8, 4, 33), (8, 2, 256))
+
+
+def b4_vs_plain(torch, md, gen, qdt, cdt, tol, nh, nkv, hd, pv):
+    """One B4 launch against the plain version on copies of the same
+    inputs: ctx within ``tol``, caches bit-exact, ctx == v where pos = 0
+    and q is f32. Returns the max |ctx error|."""
+    B, L, dev = len(pv), L_SLICE, torch.device("cuda")
+    q = torch.randn(B, 1, nh, hd, device=dev, generator=gen).to(qdt)
+    k = torch.randn(B, 1, nkv, hd, device=dev, generator=gen).to(qdt)
+    v = torch.randn(B, 1, nkv, hd, device=dev, generator=gen).to(qdt)
+    kc = torch.randn(B, L, nkv, hd, device=dev, generator=gen).to(cdt)
+    vc = torch.randn(B, L, nkv, hd, device=dev, generator=gen).to(cdt)
+    pos = torch.tensor(pv, dtype=torch.int32, device=dev)
+    kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    ctx1, _, _ = md.mega_decode_step(q, k, v, kc1, vc1, pos)
+    ctx2, _, _ = md.mega_decode_step_plain(q, k, v, kc2, vc2, pos)
+    torch.cuda.synchronize()
+    what = f"mega_decode {qdt}/{cdt} nh/nkv/hd={nh}/{nkv}/{hd} pos={pv}"
+    err = (ctx1.float() - ctx2.float()).abs().max().item()
+    if not (err <= tol):
+        fail(f"{what}: ctx err {err} > {tol}")
+    if not (torch.equal(kc1, kc2) and torch.equal(vc1, vc2)):
+        fail(f"{what}: caches differ")
+    g = nh // nkv
+    for b, p in enumerate(pv):
+        if p == 0 and qdt == torch.float32 and not torch.equal(
+                ctx1[b, 0], v[b, 0].repeat_interleave(g, 0)):
+            fail(f"{what}: pos=0 row {b} ctx != v")
+    return err
+
+
 def check_mega_decode(torch, md, flush, rng_pos):
-    """Phase 3, B4: kernel vs plain at the slice shapes."""
+    """Phase 3, B4: kernel vs plain at the slice shapes and at B4_CASES,
+    at positions that include the kernel's chunk edges; then timed at
+    the slice shape, bf16 and f32 cache, serving-like and full cache,
+    beside three floors: a one-element fill (a launch), B4 with nothing
+    to read (pos = -1: every block only takes its ticket) and a plain
+    one-launch read of the full cache's bytes (torch.sum over one tensor
+    of that size)."""
     B, L, nh, nkv, hd = B_SLICE, L_SLICE, NKV, NKV, HD
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
+    chunk, nchunks = md.plan_chunks(B, nkv, L, md._sm_count(0))
+    print(f"  mega_decode_step chunks at B={B} nkv={nkv} L={L}: {nchunks} "
+          f"of {chunk} rows, {B * nkv * nchunks} blocks", flush=True)
     pos_sets = [[0, 1, 5, 5, 511, 700, L - 1, L],
                 [L + 7, 0, -1, 3, 1000, L - 1, 2, 64],
                 rng_pos,
-                [L] * B]
+                [L] * B,
+                [chunk - 1, chunk, chunk + 1, 2 * chunk - 1, 2 * chunk,
+                 L - chunk, L - 1, -5]]
     configs = [(torch.float32, torch.float32, 1e-5),
                (torch.float32, torch.bfloat16, 1e-5),
                (torch.bfloat16, torch.bfloat16, 2e-2)]
     errs = {}
     for qdt, cdt, tol in configs:
-        worst = 0.0
-        for pv in pos_sets:
-            q = torch.randn(B, 1, nh, hd, device=dev, generator=gen).to(qdt)
-            k = torch.randn(B, 1, nkv, hd, device=dev, generator=gen).to(qdt)
-            v = torch.randn(B, 1, nkv, hd, device=dev, generator=gen).to(qdt)
-            kc = torch.randn(B, L, nkv, hd, device=dev, generator=gen).to(cdt)
-            vc = torch.randn(B, L, nkv, hd, device=dev, generator=gen).to(cdt)
-            pos = torch.tensor(pv, dtype=torch.int32, device=dev)
-            kc1, vc1, kc2, vc2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-            ctx1, _, _ = md.mega_decode_step(q, k, v, kc1, vc1, pos)
-            ctx2, _, _ = md.mega_decode_step_plain(q, k, v, kc2, vc2, pos)
-            torch.cuda.synchronize()
-            err = (ctx1.float() - ctx2.float()).abs().max().item()
-            if not (err <= tol):
-                fail(f"mega_decode {qdt}/{cdt} pos={pv}: ctx err {err} > {tol}")
-            if not (torch.equal(kc1, kc2) and torch.equal(vc1, vc2)):
-                fail(f"mega_decode {qdt}/{cdt} pos={pv}: caches differ")
-            for b, p in enumerate(pv):
-                if p == 0 and qdt == torch.float32 and not torch.equal(
-                        ctx1[b, 0], v[b, 0]):
-                    fail(f"mega_decode {cdt}: pos=0 row {b} ctx != v")
-            worst = max(worst, err)
+        worst = max(b4_vs_plain(torch, md, gen, qdt, cdt, tol, nh, nkv, hd,
+                                pv) for pv in pos_sets)
         errs[(qdt, cdt)] = worst
         print(f"  mega_decode_step q={qdt} cache={cdt}: max |ctx err| "
               f"{worst:.3e} (tol {tol}), caches bit-exact", flush=True)
+        for c_nh, c_nkv, c_hd in B4_CASES:
+            worst = max(b4_vs_plain(torch, md, gen, qdt, cdt, tol, c_nh,
+                                    c_nkv, c_hd, pv) for pv in pos_sets[:2])
+            print(f"    nh/nkv/hd={c_nh}/{c_nkv}/{c_hd} (g={c_nh // c_nkv}): "
+                  f"max |ctx err| {worst:.3e}", flush=True)
 
+    one = torch.zeros(1, device=dev)
+    floors = {"launch": timed(torch, one.zero_, flush)}
     rows = {}
     for cdt, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for pv, where in ((rng_pos, "serving-like pos"),
-                          ([L] * B, "full cache")):
+                          ([L] * B, "full cache"), ([-1] * B, "empty")):
             q = torch.randn(B, 1, nh, hd, device=dev, generator=gen)
             k = torch.randn(B, 1, nkv, hd, device=dev, generator=gen)
             v = torch.randn(B, 1, nkv, hd, device=dev, generator=gen)
@@ -221,6 +262,14 @@ def check_mega_decode(torch, md, flush, rng_pos):
             pos = torch.tensor(pv, dtype=torch.int32, device=dev)
             ms = timed(torch, lambda: md.mega_decode_step(q, k, v, kc, vc, pos),
                        flush)
+            if where == "empty":
+                floors[f"B4 {label}, pos = -1"] = ms
+                continue
+            if where == "full cache":
+                both = torch.cat([kc.reshape(-1), vc.reshape(-1)])
+                floors[f"torch.sum of {both.numel() * both.element_size()}"
+                       f" B {label}"] = timed(torch, both.sum, flush)
+                del both
             plain_ms = timed(torch, lambda: md.mega_decode_step_plain(
                 q, k, v, kc, vc, pos), flush)
             # yardstick: SDPA over the same cache, mask l <= pos (the
@@ -242,6 +291,8 @@ def check_mega_decode(torch, md, flush, rng_pos):
                   f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({by}: {nbytes} B, {ops} ops)",
                   flush=True)
+    print("  floors: " + ", ".join(f"{n} {t:.4f} ms"
+                                    for n, t in floors.items()), flush=True)
     return errs, rows
 
 
@@ -731,15 +782,19 @@ def check_flash_block(torch, fb, flush):
     """Phase 3, B5: forward and backward vs plain at the sp step's ring
     shape, the backward against a given delta with a nonzero lse cotangent
     folded in, timed; then, untimed, the same at 250-row shards.
-    Yardstick: aten's flash attention (it returns the logsumexp), bf16
-    only (its flash backend takes no f32); causal on the diagonal block,
-    full on the past and non-causal ones (every key visible)."""
+    Yardsticks, both returning the logsumexp: aten's flash attention for
+    bf16, its memory-efficient attention for f32 (the flash backend takes
+    no f32; its backward through autograd on a kept graph); causal on the
+    diagonal block, full on the past and non-causal ones (every key
+    visible)."""
     B, H, sl, D = B_SLICE, NKV, L_SLICE // SP, HD
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
     scale = 1.0 / D ** 0.5
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     lib_f = torch.ops.aten._scaled_dot_product_flash_attention
     lib_b = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    eff_f = torch.ops.aten._scaled_dot_product_efficient_attention
     errs, rows = {}, {}
     for dt in (torch.bfloat16, torch.float32):
         label = "bf16" if dt == torch.bfloat16 else "f32"
@@ -766,6 +821,16 @@ def check_flash_block(torch, fb, flush):
                 lib_bwd = timed(torch, lambda: lib_b(
                     do, q, k, v, res[0], res[1], res[2], res[3], res[4],
                     res[5], 0.0, lc, res[6], res[7], scale=scale), flush)
+            elif case != "future":
+                lc = case == "diagonal"
+                lib_fwd = timed(torch, lambda: eff_f(
+                    q, k, v, None, True, 0.0, lc, scale=scale), flush)
+                qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    og = torch.nn.functional.scaled_dot_product_attention(
+                        qg, kg, vg, is_causal=lc, scale=scale)
+                lib_bwd = timed(torch, lambda: torch.autograd.grad(
+                    og, (qg, kg, vg), do, retain_graph=True), flush)
             fb_, fo, bb, bo = b5_cost(B, H, sl, sl, D, causal, q_off, k_off,
                                       q.element_size())
             peak = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
@@ -777,8 +842,9 @@ def check_flash_block(torch, fb, flush):
                     ms=t, plain_ms=plain_ms, library_ms=lib_ms,
                     bound_ms=bound_ms, bound_by=by)
                 lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+                lib_name = "aten flash" if label == "bf16" else "aten eff"
                 print(f"  flash_block_{kind} {label} {case}: kernel {t:.4f} "
-                      f"ms, plain {plain_ms:.4f} ms, aten flash {lib_txt}, "
+                      f"ms, plain {plain_ms:.4f} ms, {lib_name} {lib_txt}, "
                       f"bound {bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)",
                       flush=True)
     for dt, lim in ((torch.bfloat16, LIM_BF16), (torch.float32, LIM_F32)):
@@ -930,7 +996,8 @@ def profile_window(torch, what, fn, top=10):
     ``top`` largest) and the device's busy share of the window's wall
     time. Prints "not measured" when the profiler reports no device time.
     Only device events count: a CPU op's device time repeats its
-    kernels'."""
+    kernels'. Returns [(device us, count, kernel name)] (empty when not
+    measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -948,7 +1015,7 @@ def profile_window(torch, what, fn, top=10):
     if not rows:
         print(f"  profiled {what}: device time not measured (the profiler "
               "reported none)", flush=True)
-        return
+        return rows
     print(f"  profiled {what}: wall {wall_us / 1e3:.1f} ms (profiler on), "
           f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.0f}"
           " % of wall; one stream, so kernels do not overlap); top by "
@@ -956,6 +1023,7 @@ def profile_window(torch, what, fn, top=10):
     for us, n, key in sorted(rows, reverse=True)[:top]:
         print(f"    {us / 1e3:8.3f} ms {100 * us / busy_us:5.1f} % x{n:<5d} "
               f"{key[:90]}", flush=True)
+    return rows
 
 
 def train_step(torch, pkg, steps=5, sp=1):
@@ -1180,9 +1248,16 @@ def serve(torch, pkg, model, cache_dtype, prompts, slots=8, profile=False,
         if eng.paged:
             eng._allocator.check()
         if profile:
-            profile_window(torch, f"{what} serving, the same {len(prompts)} "
-                           "requests again", lambda: post_all(url, prompts,
-                                                              MAX_NEW), top=8)
+            prof = profile_window(
+                torch, f"{what} serving, the same {len(prompts)} requests "
+                "again", lambda: post_all(url, prompts, MAX_NEW), top=8)
+            b4 = [r for r in prof if "mega_decode" in r[2]]
+            if b4:
+                us = sum(r[0] for r in b4)
+                print(f"    B4 (mega_decode_kernel): {us / 1e3:.3f} ms "
+                      f"device, x{sum(r[1] for r in b4)}, "
+                      f"{100 * us / sum(r[0] for r in prof):.1f} % of the "
+                      "device time", flush=True)
     finally:
         restore()
         srv.stop()
@@ -1316,6 +1391,18 @@ def main():
         name = short_kernel_name(kernel)
         print(f"  ptxas {name}: {regs}; {spills}; dynamic smem "
               f"{tc_smem(lib, name)} B", flush=True)
+    b4_ptxas = {}
+    for kernel, regs, spills in _build.ptxas_report("mega_decode"):
+        cache = "bf16" if "bfloat16" in kernel else "f32"
+        b4_ptxas.setdefault(cache, []).append(
+            f"{short_kernel_name(kernel).split('<')[1][:-1]}: "
+            f"{regs.split()[0]}" + ("" if spills.startswith(
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                "loads") else f" ({spills})"))
+    for cache, rows in b4_ptxas.items():
+        print(f"  ptxas mega_decode_kernel, {cache} cache (g, load bytes: "
+              f"registers; spills only where there are any): "
+              + ", ".join(rows), flush=True)
 
     if sys.argv[1:] == ["--sp-cards"]:
         if torch.cuda.device_count() < SP:

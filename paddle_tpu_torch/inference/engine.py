@@ -211,17 +211,23 @@ class ContinuousBatchingEngine:
                  prefill_buckets: Optional[tuple] = None,
                  tick_tokens: Optional[int] = None,
                  max_queue: Optional[int] = None,
-                 do_sample: bool = False, paged: Optional[bool] = None,
+                 do_sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0,
+                 paged: Optional[bool] = None,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  prefix_cache: bool = True, speculative=None,
                  spec_k: Optional[int] = None,
-                 spec_ngram: Optional[int] = None,
-                 tp: Optional[int] = None, mesh=None, device=None):
-        if do_sample:
-            _not_ported("sampling (do_sample=True)")
-        if (tp is not None and tp != 1) or mesh is not None:
-            _not_ported("tensor parallelism (tp=/mesh=)")
+                 spec_ngram: Optional[int] = None, draft_model=None,
+                 tp: Optional[int] = None, mesh=None,
+                 comm_precision: Optional[str] = None, device=None):
+        if do_sample or temperature != 1.0 or top_k != 0 or top_p != 1.0:
+            _not_ported("sampling (do_sample, temperature, top_k, top_p)")
+        if draft_model is not None:
+            _not_ported("draft-model speculation (draft_model=)")
+        if ((tp is not None and tp != 1) or mesh is not None
+                or comm_precision is not None):
+            _not_ported("tensor parallelism (tp=/mesh=/comm_precision=)")
         self._spec = resolve_speculative(speculative, spec_k, spec_ngram)
         self.device = resolve_device(device)
         if model.device != self.device:

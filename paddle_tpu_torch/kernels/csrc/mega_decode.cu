@@ -1,4 +1,5 @@
-// One-dispatch S=1 decode layer step for Hopper (sm_90a).
+// One-dispatch S=1 decode layer step for Hopper (sm_90a), split over the
+// cache with the merge inside the same launch.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/mega_decode.py:mega_decode_step
 // (bodies _kernel_row / _kernel_whole, math in _attend). Per batch row b:
@@ -15,14 +16,41 @@
 // bandwidth. The least time is the cache rows it must read,
 // 2 * sum_b min(pos[b], L) * nkv * hd * sizeof(cache), over 3.35 TB/s.
 //
-// Design: one block per (b, kv head), 8 warps. The warps stride over the
-// cached positions; each warp keeps an online softmax (running max, sum and
-// f32 accumulator) for the g query rows, a lane holding head-dim elements
-// lane, lane+32, ... so each cache row is read as coalesced 32-lane runs.
-// The warps' partial states merge in shared memory together with the new
-// row's logit and value. f32 accumulation throughout. Kept simple on purpose:
-// no TMA, no wgmma, no split over L across blocks (B * nkv blocks is below
-// the 132 SMs at small batch — that is a later optimisation).
+// Design, against what holds a one-block-per-(b, kv head) kernel back:
+// - The grid is (b * nkv + kv head, chunk of L). The wrapper picks the chunk
+//   length from L, B, nkv and the SM count alone (it never reads pos, which
+//   lives on the card), so that a full cache fills every SM several times.
+//   A block whose chunk starts at or past min(max(pos[b], 0), L) reads and
+//   writes nothing; it only counts itself (below).
+// - Wide loads: a lane loads VB bytes of a row at once (16, or 8, 4, 2 when
+//   hd * sizeof(cache) or the base pointers allow no more), a group of
+//   `lpr` lanes holds a row (8 lanes for hd = 64 bf16, so one warp load
+//   covers 4 rows), and q.k reduces inside the group with log2(lpr)
+//   shuffles. Loads bypass L1 and are marked evict-first (ld.global.cs):
+//   each row is read once.
+// - Loads in flight: each group issues the K and V loads of U rows before
+//   any expf (U such that they fill 32 registers: 4 rows for a bf16 row of
+//   16-byte loads, so one batch covers 64 rows of a block, and a thread
+//   stays at 64 registers, 8 blocks an SM), then takes their logits,
+//   rescales its accumulator once for the U rows and adds them. f32
+//   accumulation throughout. More rows a batch (64 registers of loads)
+//   or 8 warps a block measured slower: fewer blocks fit an SM.
+// - Few round trips in a row: the kernel is short, so its time is the
+//   chain of dependent memory trips of its slowest block plus the merge.
+//   What does not depend on pos (q, the new k and v rows) is loaded
+//   together with pos; the merge reads the workspace in one pass.
+// - One launch a layer: each chunk's block merges its groups and warps into
+//   one partial softmax state (m, s, acc[g][hd]) relative to its own max and
+//   writes it to an f32 workspace. The last block of a (b, kv head) to
+//   finish — an atomic ticket taken after a __threadfence() — folds the
+//   partials of the chunks that hold rows, in chunk order, into the new
+//   row's state (logit, weight 1, value), writes ctx, writes the new row,
+//   and resets the ticket counter to 0 for the next launch. Chunks past
+//   pos[b] are never read, so nothing stale in the workspace is ever used,
+//   and no workspace needs a memset.
+// - exp of (m - M) is taken only for a finite m: an empty group, warp or
+//   chunk contributes exactly 0, never NaN from (-inf) - (-inf). With no
+//   old row (pos[b] <= 0) ctx = (1 * v) / 1 = v exactly.
 //
 // In-place write without a barrier: the strict l < pos[b] mask means no
 // block ever reads the position it writes, and blocks of other kv heads
@@ -35,12 +63,21 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kMaxPerLane = 8;  // head_dim <= 256
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxPerLane = 8;   // elements of a row a lane holds: hd <= 256
+constexpr int kRawRegs = 32;     // registers a batch's K and V loads take
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ float ld_f32(const void* p, size_t i, int bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void st_f32(void* p, size_t i, float x, int bf16) {
+  if (bf16)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(x);
+  else
+    static_cast<float*>(p)[i] = x;
 }
 
 template <typename T>
@@ -54,178 +91,382 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// VB bytes of a row as 32-bit words (a 2-byte load fills the low half)
+template <int VB>
+struct Raw {
+  uint32_t w[VB >= 4 ? VB / 4 : 1];
+};
+
+template <int VB>
+__device__ __forceinline__ Raw<VB> load_raw(const void* p) {
+  Raw<VB> r;
+  if constexpr (VB == 16) {
+    const uint4 x = __ldcs(static_cast<const uint4*>(p));
+    r.w[0] = x.x; r.w[1] = x.y; r.w[2] = x.z; r.w[3] = x.w;
+  } else if constexpr (VB == 8) {
+    const uint2 x = __ldcs(static_cast<const uint2*>(p));
+    r.w[0] = x.x; r.w[1] = x.y;
+  } else if constexpr (VB == 4) {
+    r.w[0] = __ldcs(static_cast<const unsigned int*>(p));
+  } else {
+    r.w[0] = __ldcs(static_cast<const unsigned short*>(p));
+  }
+  return r;
+}
+
+template <int VB>
+__device__ __forceinline__ Raw<VB> zero_raw() {
+  Raw<VB> r;
+#pragma unroll
+  for (int i = 0; i < (VB >= 4 ? VB / 4 : 1); ++i) r.w[i] = 0u;
+  return r;
+}
+
+// element e of a load, widened to f32
+template <typename TC, int VB>
+__device__ __forceinline__ float elem(const Raw<VB>& r, int e) {
+  if constexpr (sizeof(TC) == 4) {
+    return __uint_as_float(r.w[e]);
+  } else {
+    const uint32_t w = r.w[e >> 1];
+    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+}
+
+// exp(m - M) for a state whose max is m, 0 for an empty one (m = -inf)
+__device__ __forceinline__ float weight(float m, float M) {
+  return m == -INFINITY ? 0.f : expf(m - M);
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-template <typename TQ, typename TC, int G>
-__global__ void __launch_bounds__(kWarps * 32)
-    mega_decode_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
-                       const TQ* __restrict__ v_new, TC* kc, TC* vc,
-                       const int* __restrict__ pos, TQ* __restrict__ ctx,
-                       int L, int nkv, int hd, float scale) {
-  const int b = blockIdx.x / nkv;
-  const int h = blockIdx.x % nkv;
+// Workspace, per (b * nkv + h, chunk) partial: ws[part * 2G + j] = m_j,
+// ws[part * 2G + G + j] = s_j (the first B * nkv * nchunks * 2G floats),
+// then acc[(part * G + j) * hd + d]. counters: one int per (b, h), 0
+// between launches.
+template <typename TC, int G, int VB>
+__global__ void __launch_bounds__(kThreads)
+    mega_decode_kernel(const void* __restrict__ q, const void* __restrict__ kn,
+                       const void* __restrict__ vn, TC* kc, TC* vc,
+                       const int* __restrict__ pos, void* __restrict__ ctx,
+                       float* __restrict__ ws, int* __restrict__ counters,
+                       int L, int nkv, int hd, int chunk, float scale,
+                       int q_bf16) {
+  constexpr int VEC = VB / (int)sizeof(TC);  // elements per load
+  constexpr int MAXV = kMaxPerLane / VEC;    // loads per lane per row, most
+  constexpr int WORDS = VB >= 4 ? VB / 4 : 1;
+  // rows per group per batch: a batch's K and V loads fill kRawRegs
+  // registers (fewer rows at g = 4, 8, whose q and acc take more)
+  constexpr int U0 = kRawRegs / (2 * MAXV * WORDS);
+  constexpr int U = G <= 2 ? U0 : (2 * U0 / G > 0 ? 2 * U0 / G : 1);
+  const int nchunks = gridDim.y;
+  const int bh = blockIdx.x;
+  const int b = bh / nkv;
+  const int h = bh - b * nkv;
+  const int c = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int nv = hd / VEC;                   // loads per row
+  int lpr = 1;                               // lanes per row: a power of 2
+  while (lpr < nv && lpr < 32) lpr <<= 1;
+  const int vpl = (nv + lpr - 1) / lpr;      // loads per lane per row
+  const int li = lane & (lpr - 1);
+  const int nslots = kWarps * (32 / lpr);    // rows the block reads at once
+  const int slot = warp * (32 / lpr) + lane / lpr;
   const int nh = nkv * G;
-  const int npl = (hd + 31) / 32;
-  const int p = pos[b];
-  const int n_old = min(max(p, 0), L);
+  const size_t q_row0 = (size_t)b * nh + (size_t)h * G;  // first q head
+  const size_t row_new = ((size_t)b * nkv + h) * hd;
+  const size_t part = (size_t)bh * nchunks + c;
+  float* ws_acc = ws + (size_t)gridDim.x * nchunks * 2 * G;
 
-  // shared: [kWarps][G][hd] accumulators, [kWarps][G] maxima,
-  // [kWarps][G] sums, [G] new-row logits
+  // shared: the new k and v rows [hd] each (f32 of their incoming values),
+  // the new row's logits [G], then the warps' states: accumulators
+  // [kWarps][G][hd], maxima and sums [kWarps][G]
   extern __shared__ float smem[];
-  float* s_acc = smem;
+  __shared__ int s_last;
+  float* s_kn = smem;
+  float* s_vn = s_kn + hd;
+  float* s_ln = s_vn + hd;
+  float* s_acc = s_ln + G;
   float* s_m = s_acc + kWarps * G * hd;
   float* s_s = s_m + kWarps * G;
-  float* s_new = s_s + kWarps * G;
 
-  const size_t q_row0 = (size_t)b * nh + (size_t)h * G;  // first q head
+  // what does not depend on pos is loaded together with it
+  const int p = pos[b];
+  for (int d = threadIdx.x; d < hd; d += kThreads) {
+    s_kn[d] = ld_f32(kn, row_new + d, q_bf16);
+    s_vn[d] = ld_f32(vn, row_new + d, q_bf16);
+  }
   float qr[G][kMaxPerLane];
 #pragma unroll
-  for (int j = 0; j < G; ++j) {
+  for (int j = 0; j < G; ++j)
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int d = lane + 32 * i;
-      qr[j][i] = (i < npl && d < hd) ? to_f32(q[(q_row0 + j) * hd + d]) : 0.f;
-    }
-  }
+    for (int v = 0; v < MAXV; ++v)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int col = v * lpr + li;
+        qr[j][v * VEC + e] =
+            (v < vpl && col < nv)
+                ? ld_f32(q, (q_row0 + j) * hd + col * VEC + e, q_bf16)
+                : 0.f;
+      }
+  const int n_old = min(max(p, 0), L);
+  const int r0 = c * chunk;
+  const int r1 = min(r0 + chunk, n_old);
 
-  float m[G], s[G], acc[G][kMaxPerLane];
-#pragma unroll
-  for (int j = 0; j < G; ++j) {
-    m[j] = -INFINITY;
-    s[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) acc[j][i] = 0.f;
-  }
-
-  const size_t row_stride = (size_t)nkv * hd;
-  const size_t base = ((size_t)b * L * nkv + h) * hd;
-  for (int l = warp; l < n_old; l += kWarps) {
-    const TC* kr = kc + base + (size_t)l * row_stride;
-    const TC* vr = vc + base + (size_t)l * row_stride;
-    float kv[kMaxPerLane], vv[kMaxPerLane];
-#pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int d = lane + 32 * i;
-      const bool in = i < npl && d < hd;
-      kv[i] = in ? to_f32(kr[d]) : 0.f;
-      vv[i] = in ? to_f32(vr[d]) : 0.f;
-    }
+  if (r0 < r1) {  // block-uniform: this chunk holds old rows
+    float m[G], s[G], acc[G][kMaxPerLane];
 #pragma unroll
     for (int j = 0; j < G; ++j) {
-      float part = 0.f;
+      m[j] = -INFINITY;
+      s[j] = 0.f;
 #pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i) part += qr[j][i] * kv[i];
-      const float logit = warp_sum(part) * scale;
-      const float m_new = fmaxf(m[j], logit);
-      const float corr = expf(m[j] - m_new);  // 0 on the first row
-      const float pr = expf(logit - m_new);
-      s[j] = s[j] * corr + pr;
+      for (int i = 0; i < kMaxPerLane; ++i) acc[j][i] = 0.f;
+    }
+
+    const size_t row_stride = (size_t)nkv * hd;
+    const size_t head0 = ((size_t)b * L * nkv + h) * hd + (size_t)li * VEC;
+    for (int base = r0; base < r1; base += nslots * U) {
+      // every K and V load of the U rows before any arithmetic on them
+      Raw<VB> kr[U][MAXV], vr[U][MAXV];
 #pragma unroll
-      for (int i = 0; i < kMaxPerLane; ++i)
-        acc[j][i] = acc[j][i] * corr + pr * vv[i];
-      m[j] = m_new;
+      for (int u = 0; u < U; ++u) {
+        const int row = base + u * nslots + slot;
+#pragma unroll
+        for (int v = 0; v < MAXV; ++v) {
+          if (row < r1 && v < vpl && v * lpr + li < nv) {
+            const size_t off = head0 + (size_t)row * row_stride +
+                               (size_t)v * lpr * VEC;
+            kr[u][v] = load_raw<VB>(kc + off);
+            vr[u][v] = load_raw<VB>(vc + off);
+          } else {
+            kr[u][v] = zero_raw<VB>();
+            vr[u][v] = zero_raw<VB>();
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        float lg[U];
+        float mx = -INFINITY;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float dot = 0.f;
+#pragma unroll
+          for (int v = 0; v < MAXV; ++v)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              dot += qr[j][v * VEC + e] * elem<TC, VB>(kr[u][v], e);
+          for (int o = lpr >> 1; o > 0; o >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          const bool in = base + u * nslots + slot < r1;
+          lg[u] = in ? dot * scale : -INFINITY;
+          mx = fmaxf(mx, lg[u]);
+        }
+        const float m_new = fmaxf(m[j], mx);
+        const float corr = weight(m[j], m_new);  // once per U rows
+        s[j] *= corr;
+#pragma unroll
+        for (int i = 0; i < kMaxPerLane; ++i) acc[j][i] *= corr;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float pr = weight(lg[u], m_new);
+          s[j] += pr;
+#pragma unroll
+          for (int v = 0; v < MAXV; ++v)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              acc[j][v * VEC + e] += pr * elem<TC, VB>(vr[u][v], e);
+        }
+        m[j] = m_new;
+      }
+    }
+
+    // the warp's row groups into one state (xor over whole groups)
+    for (int o = lpr; o < 32; o <<= 1) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const float om = __shfl_xor_sync(0xffffffffu, m[j], o);
+        const float os = __shfl_xor_sync(0xffffffffu, s[j], o);
+        const float M = fmaxf(m[j], om);
+        const float c1 = weight(m[j], M), c2 = weight(om, M);
+        s[j] = s[j] * c1 + os * c2;
+#pragma unroll
+        for (int i = 0; i < kMaxPerLane; ++i) {
+          if (i / VEC < vpl) {
+            const float oa = __shfl_xor_sync(0xffffffffu, acc[j][i], o);
+            acc[j][i] = acc[j][i] * c1 + oa * c2;
+          }
+        }
+        m[j] = M;
+      }
+    }
+    if (lane < lpr) {
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int v = 0; v < MAXV; ++v)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const int col = v * lpr + li;
+            if (v < vpl && col < nv)
+              s_acc[(warp * G + j) * hd + col * VEC + e] = acc[j][v * VEC + e];
+          }
+      if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          s_m[warp * G + j] = m[j];
+          s_s[warp * G + j] = s[j];
+        }
+      }
+    }
+    __syncthreads();
+    // the warps into the chunk's partial, relative to the chunk's max
+    for (int idx = threadIdx.x; idx < G * hd; idx += kThreads) {
+      const int j = idx / hd;
+      const int d = idx - j * hd;
+      float M = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) M = fmaxf(M, s_m[w * G + j]);
+      float a = 0.f, sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float wt = weight(s_m[w * G + j], M);
+        a += s_acc[(w * G + j) * hd + d] * wt;
+        sum += s_s[w * G + j] * wt;
+      }
+      ws_acc[(part * G + j) * hd + d] = a;
+      if (d == 0) {
+        ws[part * 2 * G + j] = M;
+        ws[part * 2 * G + G + j] = sum;
+      }
     }
   }
 
-  // publish each warp's partial softmax state
-#pragma unroll
-  for (int j = 0; j < G; ++j) {
-#pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (i < npl && d < hd) s_acc[(warp * G + j) * hd + d] = acc[j][i];
-    }
-    if (lane == 0) {
-      s_m[warp * G + j] = m[j];
-      s_s[warp * G + j] = s[j];
-    }
-  }
-  // the new row's logit per query head, at the row's incoming precision
-  if (warp < G) {
-    const int j = warp;
-    float part = 0.f;
-    for (int d = lane; d < hd; d += 32)
-      part += to_f32(q[(q_row0 + j) * hd + d]) *
-              to_f32(k_new[((size_t)b * nkv + h) * hd + d]);
-    const float logit = warp_sum(part) * scale;
-    if (lane == 0) s_new[j] = logit;
+  // every block of (b, h) takes a ticket; the last one merges. Only a
+  // block that wrote a partial fences: an empty one has nothing to publish
+  if (r0 < r1) __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int prev = atomicAdd(&counters[bh], 1);
+    s_last = prev == nchunks - 1;
+    if (s_last) counters[bh] = 0;  // every block has counted: ready again
   }
   __syncthreads();
+  if (!s_last) return;
+  __threadfence();
 
-  for (int idx = threadIdx.x; idx < G * hd; idx += blockDim.x) {
+  // the new row's logit per query head, at the row's incoming precision,
+  // from q as the row groups hold it (warp 0)
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      float dot = 0.f;
+#pragma unroll
+      for (int v = 0; v < MAXV; ++v)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const int col = v * lpr + li;
+          if (v < vpl && col < nv)
+            dot += qr[j][v * VEC + e] * s_kn[col * VEC + e];
+        }
+      for (int o = lpr >> 1; o > 0; o >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      if (lane == 0) s_ln[j] = dot * scale;
+    }
+  }
+  __syncthreads();
+  // one pass over the chunks that hold rows, starting from the new row
+  // (weight 1 against its own logit); 4 chunks' loads in flight at once
+  const int n_act = (n_old + chunk - 1) / chunk;
+  const size_t p0 = (size_t)bh * nchunks;
+  for (int idx = threadIdx.x; idx < G * hd; idx += kThreads) {
     const int j = idx / hd;
     const int d = idx - j * hd;
-    const float ln = s_new[j];
-    float mx = ln;
+    float M = s_ln[j], den = 1.f, num = s_vn[d];
+    for (int k0 = 0; k0 < n_act; k0 += 4) {
+      float mk[4], sk[4], ak[4];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w * G + j]);
-    const float p_new = expf(ln - mx);
-    float den = p_new;
-    float num = p_new * to_f32(v_new[((size_t)b * nkv + h) * hd + d]);
+      for (int i = 0; i < 4; ++i) {
+        const size_t pk = p0 + k0 + i;
+        const bool in = k0 + i < n_act;
+        mk[i] = in ? __ldcg(ws + pk * 2 * G + j) : -INFINITY;
+        sk[i] = in ? __ldcg(ws + pk * 2 * G + G + j) : 0.f;
+        ak[i] = in ? __ldcg(ws_acc + (pk * G + j) * hd + d) : 0.f;
+      }
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(s_m[w * G + j] - mx);  // 0 for an idle warp
-      den += s_s[w * G + j] * c;
-      num += s_acc[(w * G + j) * hd + d] * c;
+      for (int i = 0; i < 4; ++i) {
+        const float M2 = fmaxf(M, mk[i]);
+        const float c1 = expf(M - M2), c2 = weight(mk[i], M2);
+        den = den * c1 + sk[i] * c2;
+        num = num * c1 + ak[i] * c2;
+        M = M2;
+      }
     }
-    ctx[(q_row0 + j) * hd + d] = from_f32<TQ>(num / den);
+    st_f32(ctx, (q_row0 + j) * hd + d, num / den, q_bf16);
   }
-
   if (p >= 0 && p < L) {
     const size_t dst = ((size_t)b * L + p) * nkv * hd + (size_t)h * hd;
-    const size_t src = ((size_t)b * nkv + h) * hd;
-    for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-      kc[dst + d] = from_f32<TC>(to_f32(k_new[src + d]));
-      vc[dst + d] = from_f32<TC>(to_f32(v_new[src + d]));
+    for (int d = threadIdx.x; d < hd; d += kThreads) {
+      kc[dst + d] = from_f32<TC>(s_kn[d]);
+      vc[dst + d] = from_f32<TC>(s_vn[d]);
     }
   }
 }
 
-template <typename TQ, typename TC, int G>
-cudaError_t launch_g(const void* q, const void* k, const void* v, void* kc,
-                     void* vc, const int* pos, void* ctx, int B, int L,
-                     int nkv, int hd, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)kWarps * G * hd +
-                                       2 * (size_t)kWarps * G + G);
-  auto kern = mega_decode_kernel<TQ, TC, G>;
+struct Args {
+  const void *q, *k, *v;
+  void *kc, *vc;
+  const int* pos;
+  void* ctx;
+  float* ws;
+  int* counters;
+  int B, L, nkv, hd, chunk, nchunks, q_bf16;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename TC, int G, int VB>
+cudaError_t launch_vb(const Args& a) {
+  const size_t smem = sizeof(float) * (2 * (size_t)a.hd + G +
+                                       (size_t)kWarps * G * (a.hd + 2));
+  auto kern = mega_decode_kernel<TC, G, VB>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<B * nkv, kWarps * 32, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TQ*>(k),
-      static_cast<const TQ*>(v), static_cast<TC*>(kc), static_cast<TC*>(vc),
-      pos, static_cast<TQ*>(ctx), L, nkv, hd, scale);
+  kern<<<dim3(a.B * a.nkv, a.nchunks), kThreads, smem, a.stream>>>(
+      a.q, a.k, a.v, static_cast<TC*>(a.kc), static_cast<TC*>(a.vc), a.pos,
+      a.ctx, a.ws, a.counters, a.L, a.nkv, a.hd, a.chunk, a.scale, a.q_bf16);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TC>
-cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         void* kc, void* vc, const int* pos, void* ctx, int B,
-                         int L, int nkv, int g, int hd, float scale,
-                         cudaStream_t stream) {
-  switch (g) {
-    case 1:
-      return launch_g<TQ, TC, 1>(q, k, v, kc, vc, pos, ctx, B, L, nkv, hd,
-                                 scale, stream);
+template <typename TC, int G>
+cudaError_t launch_g(const Args& a, int vec_bytes) {
+  switch (vec_bytes) {
+    case 16: return launch_vb<TC, G, 16>(a);
+    case 8: return launch_vb<TC, G, 8>(a);
+    case 4: return launch_vb<TC, G, 4>(a);
     case 2:
-      return launch_g<TQ, TC, 2>(q, k, v, kc, vc, pos, ctx, B, L, nkv, hd,
-                                 scale, stream);
-    case 4:
-      return launch_g<TQ, TC, 4>(q, k, v, kc, vc, pos, ctx, B, L, nkv, hd,
-                                 scale, stream);
-    case 8:
-      return launch_g<TQ, TC, 8>(q, k, v, kc, vc, pos, ctx, B, L, nkv, hd,
-                                 scale, stream);
-    default:
+      if constexpr (sizeof(TC) == 2) return launch_vb<TC, G, 2>(a);
       return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TC>
+cudaError_t launch_typed(const Args& a, int g, int vec_bytes) {
+  switch (g) {
+    case 1: return launch_g<TC, 1>(a, vec_bytes);
+    case 2: return launch_g<TC, 2>(a, vec_bytes);
+    case 4: return launch_g<TC, 4>(a, vec_bytes);
+    case 8: return launch_g<TC, 8>(a, vec_bytes);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -233,27 +474,26 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 
 // q [B,1,nkv*g,hd], k/v [B,1,nkv,hd] (f32 or bf16, q_bf16); kc/vc
 // [B,L,nkv,hd] (f32 or bf16, cache_bf16), all contiguous; pos [B] int32;
-// ctx [B,1,nkv*g,hd] at q's type. Returns the cudaError_t of the launch.
+// ctx [B,1,nkv*g,hd] at q's type. ws: f32, B*nkv*nchunks*g*(hd+2) floats;
+// counters: B*nkv ints, 0 before the first launch (each launch leaves
+// them 0). Chunks of `chunk` rows, nchunks of them, cover [0, L) once.
+// vec_bytes: bytes a lane loads at once, dividing hd * sizeof(cache) and
+// the alignment of kc and vc. Returns the cudaError_t of the launch.
 extern "C" int mega_decode_launch(const void* q, const void* k, const void* v,
                                   void* kc, void* vc, const void* pos,
-                                  void* ctx, int B, int L, int nkv, int g,
-                                  int hd, int q_bf16, int cache_bf16,
-                                  float scale, void* stream) {
-  if (hd < 1 || hd > 32 * kMaxPerLane || B < 1 || L < 1 || nkv < 1)
+                                  void* ctx, void* ws, void* counters, int B,
+                                  int L, int nkv, int g, int hd, int chunk,
+                                  int nchunks, int vec_bytes, int q_bf16,
+                                  int cache_bf16, float scale, void* stream) {
+  const int elem = cache_bf16 ? 2 : 4;
+  if (hd < 1 || hd > 32 * kMaxPerLane || B < 1 || L < 1 || nkv < 1 ||
+      chunk < 1 || nchunks < 1 ||
+      (long long)chunk * nchunks < L || (long long)chunk * (nchunks - 1) >= L ||
+      vec_bytes < elem || vec_bytes > 16 || (hd * elem) % vec_bytes)
     return (int)cudaErrorInvalidValue;
-  const int* p = static_cast<const int*>(pos);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (q_bf16) {
-    e = cache_bf16 ? launch_typed<__nv_bfloat16, __nv_bfloat16>(
-                         q, k, v, kc, vc, p, ctx, B, L, nkv, g, hd, scale, st)
-                   : launch_typed<__nv_bfloat16, float>(
-                         q, k, v, kc, vc, p, ctx, B, L, nkv, g, hd, scale, st);
-  } else {
-    e = cache_bf16 ? launch_typed<float, __nv_bfloat16>(
-                         q, k, v, kc, vc, p, ctx, B, L, nkv, g, hd, scale, st)
-                   : launch_typed<float, float>(q, k, v, kc, vc, p, ctx, B, L,
-                                                nkv, g, hd, scale, st);
-  }
-  return (int)e;
+  Args a{q, k, v, kc, vc, static_cast<const int*>(pos), ctx,
+         static_cast<float*>(ws), static_cast<int*>(counters), B, L, nkv, hd,
+         chunk, nchunks, q_bf16, scale, static_cast<cudaStream_t>(stream)};
+  return (int)(cache_bf16 ? launch_typed<__nv_bfloat16>(a, g, vec_bytes)
+                          : launch_typed<float>(a, g, vec_bytes));
 }

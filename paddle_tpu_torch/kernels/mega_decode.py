@@ -2,12 +2,19 @@
 one layer in one launch.
 
 Port of paddle_tpu/kernels/mega_decode.py:mega_decode_step (TPU Pallas;
-math in ``_attend``). The CUDA kernel is ``csrc/mega_decode.cu``: one block
-per (batch row, kv head) walks the OLD cache under a strict ``l < pos[b]``
-mask with an online softmax in f32, merges the incoming k/v row at its
+math in ``_attend``). The CUDA kernel is ``csrc/mega_decode.cu``: the grid
+is (batch row x kv head, chunk of the cache). Each block walks its chunk of
+the OLD cache under a strict ``l < pos[b]`` mask with an online softmax in
+f32 and writes a partial state to a workspace; the last block of each
+(batch row, kv head) merges the partials with the incoming k/v row at its
 incoming precision, writes ctx, then writes the new row at ``pos[b]`` when
 ``0 <= pos[b] < L``. It is bound by the cache bytes it reads (see the
 source note there).
+
+``plan_chunks`` picks the chunk length from the shape and the SM count
+alone, never from ``pos`` (reading it would sync the host with the card).
+The workspace and the merge's ticket counters are allocated once per
+(device, stream, shape) and reused; the kernel leaves the counters at 0.
 
 Unlike the JAX function, which returns new caches aliased to the old,
 this one updates ``kc`` and ``vc`` IN PLACE and returns them.
@@ -15,26 +22,72 @@ this one updates ``kc`` and ``vc`` IN PLACE and returns them.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import (_build, check_launch, common_device, ptr, require_contiguous,
                stream_ptr)
 
-__all__ = ["mega_decode_step", "mega_decode_step_plain"]
+__all__ = ["mega_decode_step", "mega_decode_step_plain", "plan_chunks"]
 
 _NEG_INF = -1e30
 _GROUPS = (1, 2, 4, 8)
 _MAX_HEAD_DIM = 256
+# chunks are a multiple of this many rows (a block reads 16-64 rows of a
+# head in one batch of loads); at most this many chunks (the merge folds
+# them one after another)
+_CHUNK_ROWS = 64
+_MAX_CHUNKS = 64
+# blocks per SM a launch aims at, so a full cache fills the card several
+# times over and a short one still spreads
+_BLOCKS_PER_SM = 8
 _SIGNATURES = {"mega_decode_launch": (ctypes.c_int, [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_float, ctypes.c_void_p])}
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                              ctypes.c_void_p])}
+_workspaces: dict = {}
 
 
 def _scale(hd: int) -> float:
     return 1.0 / float(hd) ** 0.5
+
+
+def plan_chunks(B: int, nkv: int, L: int, sm_count: int) -> tuple:
+    """(chunk, nchunks): the kernel's split of the cache rows [0, L) into
+    ``nchunks`` chunks of ``chunk`` rows (the last may be shorter, none is
+    empty), so that the B * nkv * nchunks blocks come to about
+    ``_BLOCKS_PER_SM`` per SM. ``chunk`` is a multiple of ``_CHUNK_ROWS``
+    and ``nchunks`` at most ``_MAX_CHUNKS``."""
+    if min(B, nkv, L, sm_count) < 1:
+        raise ValueError(f"plan_chunks: B={B} nkv={nkv} L={L} "
+                         f"sm_count={sm_count}")
+    want = -(-_BLOCKS_PER_SM * sm_count // (B * nkv))
+    chunk = max(-(-L // want), -(-L // _MAX_CHUNKS))
+    chunk = -(-chunk // _CHUNK_ROWS) * _CHUNK_ROWS
+    return chunk, -(-L // chunk)
+
+
+def workspace_floats(B: int, nkv: int, nchunks: int, g: int,
+                     hd: int) -> int:
+    """f32 workspace of one launch: (m, s) and acc[g][hd] per partial."""
+    return B * nkv * nchunks * g * (hd + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _vec_bytes(hd: int, elem: int, *tensors) -> int:
+    """The widest load (16, 8, 4 or 2 bytes) that divides a cache row and
+    the alignment of every base pointer."""
+    for vb in (16, 8, 4, 2):
+        if (vb >= elem and hd * elem % vb == 0
+                and all(t.data_ptr() % vb == 0 for t in tensors)):
+            return vb
+    raise ValueError(f"mega_decode_step: no load width for hd={hd}")
 
 
 def mega_decode_step_plain(q, k, v, kc, vc, pos):
@@ -104,12 +157,24 @@ def mega_decode_step(q, k, v, kc, vc, pos):
     require_contiguous("mega_decode_step", q=q, k=k, v=v, kc=kc, vc=vc,
                        pos=pos)
     lib = _build.load("mega_decode", _SIGNATURES)
+    g = nh // nkv
+    chunk, nchunks = plan_chunks(B, nkv, L, _sm_count(dev.index))
+    stream = stream_ptr(dev)
+    key = (dev.index, stream.value, B, nkv, nchunks, g, hd)
+    if key not in _workspaces:
+        _workspaces[key] = (
+            torch.empty(workspace_floats(B, nkv, nchunks, g, hd),
+                        dtype=torch.float32, device=dev),
+            torch.zeros(B * nkv, dtype=torch.int32, device=dev))
+    ws, counters = _workspaces[key]
     ctx = torch.empty_like(q)
     with torch.cuda.device(dev):
         rc = lib.mega_decode_launch(
             ptr(q), ptr(k), ptr(v), ptr(kc), ptr(vc), ptr(pos), ptr(ctx),
-            B, L, nkv, nh // nkv, hd, int(q.dtype == torch.bfloat16),
-            int(kc.dtype == torch.bfloat16), _scale(hd), stream_ptr(dev))
+            ptr(ws), ptr(counters), B, L, nkv, g, hd, chunk, nchunks,
+            _vec_bytes(hd, kc.element_size(), kc, vc),
+            int(q.dtype == torch.bfloat16), int(kc.dtype == torch.bfloat16),
+            _scale(hd), stream)
     check_launch("mega_decode_step", rc)
     mega_decode_step.launches += 1
     return ctx, kc, vc

@@ -67,16 +67,21 @@ def _select_token(logits):
 
 
 def generate(model, input_ids, max_new_tokens: int = 32,
-             do_sample: bool = False,
-             eos_token_id: Optional[int] = None,
+             do_sample: bool = False, temperature: float = 1.0,
+             top_k: int = 0, top_p: float = 1.0,
+             eos_token_id: Optional[int] = None, seed: int = 0,
              cache_dtype: str = "bfloat16") -> np.ndarray:
     """Greedy-decode ``max_new_tokens`` continuations of ``input_ids``
     ([P] or [B, P] ints) on the model's device. Returns an int64 numpy
     array [B, P + max_new_tokens]; after a row emits ``eos_token_id`` it is
-    padded with eos."""
-    if do_sample:
+    padded with eos. Sampling (``do_sample`` and its knobs
+    ``temperature``, ``top_k``, ``top_p``, ``seed``) is not ported: any
+    of them off its default raises."""
+    if (do_sample or temperature != 1.0 or top_k != 0 or top_p != 1.0
+            or seed != 0):
         raise NotImplementedError(
-            "sampling is not ported yet — see ROADMAP.md")
+            "sampling (do_sample, temperature, top_k, top_p, seed) is not "
+            "ported yet — see ROADMAP.md")
     ids = np.asarray(input_ids).astype(np.int64)
     if ids.ndim == 1:
         ids = ids[None]

@@ -45,8 +45,10 @@ class GPTConfig:
     dropout: float = 0.0
     tie_embeddings: bool = True
     use_moe: bool = False
+    moe_experts: int = 8
     initializer_range: float = 0.02
     recompute: bool = False
+    recompute_policy: str = "full"   # read only under recompute
     scan_layers: bool = False
     fused_loss_chunk: int = 0
 

@@ -84,12 +84,18 @@ def _no_dropout(drop, op):
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
-                    return_softmax=False, training=True):
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None):
     """q/k/v ``[B, S, H, D]`` -> ``(out [B, S, H, D], None)``, paddle's
     (result, softmax) pair; softmax scale ``1 / sqrt(D)``. Runs the B1
     kernels forward and backward on the card, their plain versions on the
-    CPU."""
+    CPU. ``fixed_seed_offset`` and ``rng_name`` seed attention dropout,
+    which is not ported; ``name`` is ignored, as paddle_tpu ignores it."""
     _no_dropout(dropout if training else 0.0, "flash_attention")
+    if fixed_seed_offset is not None or rng_name:
+        raise NotImplementedError(
+            "flash_attention: fixed_seed_offset / rng_name (dropout seeds) "
+            "are not ported yet — see ROADMAP.md")
     scale = 1.0 / query.shape[-1] ** 0.5
     return _FlashAttention.apply(query, key, value, bool(causal), scale), \
         None
@@ -113,11 +119,11 @@ def _masked_attention(q, k, v, attn_mask, causal, scale):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
+                                 training=True, name=None):
     """paddle's ``scaled_dot_product_attention`` on ``[B, S, H, D]``.
     Without a mask it is ``flash_attention`` (the B1 kernels); with
     ``attn_mask`` (bool keep-mask or additive bias) it is plain tensor
-    code."""
+    code. ``name`` is ignored, as paddle_tpu ignores it."""
     _no_dropout(dropout_p if training else 0.0,
                 "scaled_dot_product_attention")
     scale = 1.0 / query.shape[-1] ** 0.5

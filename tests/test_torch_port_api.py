@@ -1,0 +1,87 @@
+"""paddle_tpu_torch's public signatures against paddle_tpu's.
+
+A call written for paddle_tpu must bind the same way in the port: the
+same parameter names in the same order (a positional argument means the
+same thing in both), with only the port's trailing ``device`` beyond
+them; ``GPTConfig`` has the same fields with the same defaults. What the
+port does not implement raises NotImplementedError naming ROADMAP.md at a
+non-default value, instead of being dropped silently (the engine's such
+options: tests/test_torch_port_engine.py).
+"""
+import dataclasses
+import importlib
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.inference.engine import \
+    ContinuousBatchingEngine as JaxEngine
+from paddle_tpu.models import generation as jgen
+from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
+from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
+from paddle_tpu_torch.models import generation as tgen
+from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
+from paddle_tpu_torch.models.gpt import GPTConfig
+
+# both packages re-export a flash_attention function under the module's name
+jfa = importlib.import_module("paddle_tpu.nn.functional.flash_attention")
+tfa = importlib.import_module("paddle_tpu_torch.nn.functional.flash_attention")
+
+
+def _fields(cls):
+    return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+
+def test_gpt_config_fields_match_reference():
+    assert _fields(GPTConfig) == _fields(JaxGPTConfig)
+    assert GPTConfig(moe_experts=4).moe_experts == 4
+    assert GPTConfig(recompute_policy="dots").recompute_policy == "dots"
+
+
+@pytest.mark.parametrize("port,ref", [
+    (tfa.flash_attention, jfa.flash_attention),
+    (tfa.scaled_dot_product_attention, jfa.scaled_dot_product_attention),
+    (tgen.generate, jgen.generate),
+    (ContinuousBatchingEngine.__init__, JaxEngine.__init__)],
+    ids=["flash_attention", "scaled_dot_product_attention", "generate",
+         "ContinuousBatchingEngine"])
+def test_signature_matches_reference(port, ref):
+    got = list(inspect.signature(port).parameters)
+    want = list(inspect.signature(ref).parameters)
+    if got[-1:] == ["device"] and want[-1:] != ["device"]:
+        got = got[:-1]
+    assert got == want
+
+
+def _qkv():
+    rs = np.random.RandomState(0)
+    return [torch.from_numpy(rs.randn(1, 8, 1, 4).astype(np.float32))
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("kw", [{"fixed_seed_offset": 3},
+                                {"rng_name": "local_seed"}])
+def test_flash_attention_dropout_seeds_not_ported(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfa.flash_attention(*_qkv(), **kw)
+
+
+def test_attention_name_is_ignored():
+    q, k, v = _qkv()
+    want = tfa.flash_attention(q, k, v, causal=True)[0]
+    torch.testing.assert_close(
+        tfa.flash_attention(q, k, v, causal=True, name="attn")[0], want,
+        rtol=0, atol=0)
+    torch.testing.assert_close(
+        tfa.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         name="attn"), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kw", [{"temperature": 0.7}, {"top_k": 4},
+                                {"top_p": 0.9}, {"seed": 1}])
+def test_generate_sampling_knobs_not_ported(kw):
+    m = GPTForCausalLM(gpt_tiny(), device="cpu", seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tgen.generate(m, np.arange(4), 2, **kw)

@@ -178,17 +178,32 @@ def test_functionals_match_paddle_tpu(api, causal):
     assert tfa.flash_attn_fwd.launches == tfa.flash_attn_bwd.launches == 0
 
 
-def test_sdpa_with_mask_matches_paddle_tpu():
-    """An explicit bool keep-mask (plain tensor code on both sides)."""
+@pytest.mark.parametrize("case", ["bool", "bool causal", "bias",
+                                  "bias causal", "fully masked row",
+                                  "Sq < Sk"])
+def test_sdpa_with_mask_matches_paddle_tpu(case):
+    """An explicit bool keep-mask or additive f32 bias, with and without
+    is_causal (plain tensor code on both sides). A fully masked row
+    attends evenly over every key in both packages; Sq < Sk takes the
+    causal mask from the top-left corner in both."""
     rs = np.random.RandomState(4)
-    q, k, v = (rs.randn(2, 16, 2, 8).astype(np.float32) for _ in range(3))
-    mask = rs.rand(2, 1, 16, 16) > 0.3
-    mask[..., 0] = True                          # every row keeps a key
+    Sq, Sk = (8, 16) if case == "Sq < Sk" else (16, 16)
+    q = rs.randn(2, Sq, 2, 8).astype(np.float32)
+    k, v = (rs.randn(2, Sk, 2, 8).astype(np.float32) for _ in range(2))
+    if case.startswith("bias"):
+        mask = rs.randn(2, 2, Sq, Sk).astype(np.float32)
+    else:
+        mask = rs.rand(2, 1, Sq, Sk) > 0.3
+        mask[..., 0] = True                      # every row keeps a key
+        if case == "fully masked row":
+            mask[1, 0, 5] = False
+    causal = case.endswith("causal") or case == "Sq < Sk"
     want = jfa.scaled_dot_product_attention(
         paddle.to_tensor(q), paddle.to_tensor(k), paddle.to_tensor(v),
-        attn_mask=paddle.to_tensor(mask))
+        attn_mask=paddle.to_tensor(mask), is_causal=causal)
     got = TF.scaled_dot_product_attention(*_t(q, k, v),
-                                          attn_mask=torch.from_numpy(mask))
+                                          attn_mask=torch.from_numpy(mask),
+                                          is_causal=causal)
     _close(got, np.asarray(want.numpy()))
 
 

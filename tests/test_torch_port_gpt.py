@@ -133,7 +133,8 @@ def test_default_device_is_the_card():
             GPTForCausalLM(gpt_tiny())
 
 
-@pytest.mark.parametrize("field", ["scan_layers", "use_moe", "recompute"])
+@pytest.mark.parametrize("field", ["scan_layers", "use_moe", "recompute",
+                                   "fused_loss_chunk"])
 def test_unported_config_raises(field):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPTForCausalLM(gpt_tiny(**{field: True}), device="cpu")
