@@ -22,10 +22,19 @@ failure:
    and 2-byte loads), timed with a bf16 and an f32 cache, serving-like and
    full, beside SDPA and three floors (a one-element fill; B4 at pos =
    -1, which reads nothing; torch.sum over the full cache's bytes);
-   slot write (B3); paged write (B3 paged) into a [512, 16, 12, 64] pool
-   at the decode shape (n = 8 rows) and an admission shape (n = 512),
-   bf16/f32 pages, int8 pages and their f32 scale plane, bit-exact.
-   Training
+   int8 quantisation (quant_rows) on the card against the CPU, bit for
+   bit; the per-plane slot write (B3) and the fused one (kv_slot_write:
+   the int8 slot decode's four planes in one launch, at positions with
+   -1, L and L + 7); the per-plane paged write (B3 paged) into a [512, 16,
+   12, 64] pool at the decode shape (n = 8 rows) and an admission shape
+   (n = 512), bf16/f32 pages, int8 pages and their f32 scale plane; and
+   the fused one (kv_paged_write: both halves of a layer, the page
+   arithmetic, the gates and the int8 quantisation in one launch) from
+   strided qkv rows, f32 and bf16, into bf16, f32 and int8 pools at
+   decode, verify and admission shapes, with dead rows, wlen, negative
+   positions, the page edges and rows past the table; all bit-exact
+   (NaN where NaN), the fused writes timed beside the launches they
+   replace, index_put_ and the byte bound. Training
    (gpt_125m at batch 8 x seq 1024): flash attention forward and backward
    (B1) at B=8, H=12, S=1024, D=64, bf16 on the tensor-core kernels and
    f32 on the SIMT ones (each launch's path checked by its counters), both
@@ -46,13 +55,15 @@ failure:
    PredictorServer; 8 concurrent POST /generate. The mega-decode launch
    count must equal ticks x tick_tokens x 12 layers. The same requests
    run once more under torch.profiler (device busy share, top kernels,
-   B4's device time).
+   device kernels a forward, B4's device time).
 5. serving, f32 cache: 4 requests, tokens identical to the sequential
    greedy generate() of a CPU copy of the same weights (a differing token
    is accepted only where the CPU oracle's top-2 logit margin is < 1e-4).
-6. serving, int8 cache: 4 requests; slot-write launches must equal
-   ticks x tick_tokens x 12 layers x 4. In phases 4-6 and 9-12 no plain
-   version of a serving kernel may run.
+6. serving, int8 cache: 4 requests; kv_slot_write launches must equal
+   ticks x tick_tokens x 12 layers (one a layer for the four planes);
+   profiled as phase 4. In phases 4-6 and 9-12 no plain version of a
+   serving kernel and no per-plane write (fused_slot_write,
+   fused_paged_write) may run.
 7. training parity, f32: gpt_125m with f32 weights on the card and a CPU
    copy; one loss and backward at batch 2 x seq 128; loss and every
    parameter's grad against the CPU's.
@@ -66,19 +77,22 @@ failure:
    share one 256-token prefix (16 pages) before distinct 16-200-token
    suffixes. Prefix hits must be 7 with 7 x 256 tokens saved; after the
    requests retire only the trie's pages stay in use and the allocator's
-   invariants hold; B3-paged launches must equal (admissions + ticks x
-   tick_tokens) x 12 layers x 2 and B4 must not run. The same requests
-   run once more under torch.profiler, prefix cache warm.
+   invariants hold; kv_paged_write launches must equal (admissions +
+   ticks x tick_tokens) x 12 layers (one a layer for both halves) and B4
+   must not run. The same requests run once more under torch.profiler,
+   prefix cache warm.
 10. paged serving, f32 pool, vs the sequential CPU oracle (phase 5's
    rule): 4 requests, one repeating another's 128-token prompt, so its
    admission copies the tail page and prefills one token.
-11. paged serving, int8 pool: B3-paged launches equal (admissions +
-   ticks x tick_tokens) x 12 x 4.
+11. paged serving, int8 pool: kv_paged_write launches equal (admissions
+   + ticks x tick_tokens) x 12, the quantisation in the launch; profiled
+   as phase 9.
 12. n-gram speculative decoding (spec_k=4) on paged f32 pools: prompts
    repeat a 32-token motif; tokens vs the CPU oracle (phase 5's rule),
-   acceptance rate > 0 and accepted tokens per verify tick > 1; B3-paged
-   launches equal (admissions + verify ticks + plain ticks x
-   tick_tokens) x 12 x 2.
+   acceptance rate > 0 and accepted tokens per verify tick > 1;
+   kv_paged_write launches equal (admissions + verify ticks + plain ticks
+   x tick_tokens) x 12. Then one line a phase of 6, 9 and 11: wall, ticks,
+   ms a tick, device busy share, device kernels a forward.
 13. sequence-parallel attention: ring_attention and ulysses_attention on a
    4-position mesh on the one card (devices=["cuda:0"] * 4) at B=8,
    S=1024, H=12, D=64, causal, f32 and bf16: outputs and q/k/v grads
@@ -96,12 +110,19 @@ failure:
    losses are held to phase 8's (LOSS_RTOL_SP); one step profiled.
 15. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
    tensor-core kernels of phases 8 and 14, and the f32 SIMT ones of
-   phases 7 and 13), the card line, and last the
-   {"ok": true, "device": {...}} line.
+   phases 7 and 13; B3 four times: kv_slot_write and kv_paged_write with
+   their launches in phases 6 and 9, and the per-plane fused_slot_write
+   and fused_paged_write, which no serving path launches: 0), the card
+   line, and last the {"ok": true, "device": {...}} line.
 
 ``python3 chip_smoke.py --sp-cards`` on a host with 4 or more cards runs
 phases 1 and 2 and then only phase 13's run with one shard on each of
-cuda:0..3, and prints no result line.
+cuda:0..3, and prints no result line. ``python3 chip_smoke.py --serving``
+runs phases 1 and 2 and then phases 6, 9 and 11 alone after a warm-up
+serve, served and profiled as in the full run but without launch-count
+checks, and prints
+their summary lines and no result line: copied into a checkout of an
+earlier commit, it measures that commit's serving the same way.
 """
 import json
 import math
@@ -431,6 +452,331 @@ def check_paged_write(torch, np, cw, flush):
                   f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}: "
                   f"{nbytes} B)", flush=True)
     return rows
+
+
+def same(torch, a, b):
+    """Equal bit for bit, but for NaN payloads: NaN at the same places."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def check_quant(torch, cw):
+    """Phase 3: ``quant_rows`` on the card against the CPU, bit for bit
+    (IEEE amax / 127 on both), over 49,152 rows of 64; beside it, how many
+    scales amax / 127.0 by a Python number gives otherwise (PyTorch's CUDA
+    division by a Python number multiplies by the f32 reciprocal)."""
+    gen = torch.Generator().manual_seed(11)
+    x = (torch.randn(4096, NKV, HD, generator=gen)
+         * torch.rand(4096, NKV, 1, generator=gen) * 4)
+    q_cpu, s_cpu = cw.quant_rows(x)
+    xc = x.cuda()
+    q, s = cw.quant_rows(xc)
+    n_old = int((xc.abs().amax(-1) / 127.0).cpu().ne(s_cpu).sum())
+    torch.cuda.synchronize()
+    if not (torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)):
+        fail("quant_rows: the card's int8 rows or scales differ from the "
+             "CPU's")
+    print(f"  quant_rows: card == CPU bit for bit over {s_cpu.numel()} rows"
+          f"; amax / 127.0 by a Python number gives another scale in "
+          f"{n_old} of them", flush=True)
+
+
+def composite_paged_write(torch, cw, pool, rows, bt, pos, live=None,
+                          wlen=None):
+    """One half as the paged path wrote it before ``kv_paged_write``: the
+    page arithmetic in tensor ops, the cast (or ``quant_rows``), a
+    contiguous copy, then ``fused_paged_write`` on each pool leaf. A layer
+    made two such calls."""
+    pages, bt = pool["pages"], bt.long()
+    PS, dev = pages.shape[1], pages.device
+    B, S = rows.shape[0], rows.shape[1]
+    PM = bt.shape[1]
+    s_ids = torch.arange(S, device=dev)
+    if isinstance(pos, torch.Tensor):
+        base = pos.to(torch.int64)[:, None]
+    else:
+        base = torch.full((B, 1), int(pos), dtype=torch.int64, device=dev)
+    t = base + s_ids[None, :]
+    valid = t < PM * PS
+    if live is not None:
+        valid = valid & live[:, None]
+    if wlen is not None:
+        valid = valid & (s_ids[None, :] < wlen)
+    page_slot = torch.clamp(torch.div(t, PS, rounding_mode="floor"), 0,
+                            PM - 1)
+    n = B * S
+    phys = torch.gather(bt, 1, page_slot).reshape(n).to(torch.int32)
+    off = torch.remainder(t, PS).reshape(n).to(torch.int32)
+    valid = valid.reshape(n).to(torch.int32)
+    if "scale" in pool:
+        qrows, scale = cw.quant_rows(rows)
+        cw.fused_paged_write(pages, qrows.reshape((n,) + qrows.shape[2:]),
+                             phys, off, valid)
+        cw.fused_paged_write(pool["scale"], scale.reshape(
+            (n,) + scale.shape[2:]), phys, off, valid)
+        return
+    cw.fused_paged_write(pages, rows.to(pages.dtype).reshape(
+        (n,) + rows.shape[2:]).contiguous(), phys, off, valid)
+
+
+def kv_targets(np, bt, pos, S, PS, live, wlen, NP):
+    """Host view of one kv_paged_write: (pool rows written a half,
+    distinct (b, page slot) table entries read). Fails the script if two
+    valid rows of one half would land on one pool row (the cases below
+    never do)."""
+    bt = np.asarray(bt)
+    B, PM = bt.shape
+    base = (np.asarray(pos, np.int64)[:, None] if np.ndim(pos)
+            else np.full((B, 1), int(pos), np.int64))
+    t = base + np.arange(S)[None, :]
+    ok = t < PM * PS
+    if live is not None:
+        ok &= np.asarray(live)[:, None]
+    if wlen is not None:
+        ok &= np.arange(S)[None, :] < wlen
+    slot = np.clip(np.floor_divide(t, PS), 0, PM - 1)
+    phys = np.take_along_axis(bt, slot, 1)
+    ok &= (phys >= 0) & (phys < NP)
+    flat = (phys * PS + np.mod(t, PS))[ok]
+    if np.unique(flat).shape[0] != flat.shape[0]:
+        fail("kv_paged_write case: two valid rows target one pool row")
+    b_ids = np.broadcast_to(np.arange(B)[:, None], t.shape)
+    entries = np.unique((b_ids * PM + slot)[ok]).shape[0]
+    return flat.shape[0], entries
+
+
+# kv_paged_write's cases: (name, B, S, pos, live, wlen, bad table entries
+# {(b, slot): page}). Decode at serving-like positions (pos None: phase 3's
+# rng_pos) and at the page edges, -1, -3 and past the table with a dead row
+# and two table entries out of [0, NP); a speculative verify block of 5
+# across page edges, from -2 and running past the table; admissions of 512
+# rows from 0 with wlen 300, from an unaligned 261, from 700 (past the
+# table), and a block of 8 from -3.
+KV_PAGED_CASES = (
+    ("decode", B_SLICE, 1, None, None, None, {}),
+    ("decode edges", B_SLICE, 1, [15, 16, 17, -1, -3, 0, 1024, 1031],
+     [True, True, True, True, True, False, True, True], None,
+     {(3, 0): -1, (1, 1): NUM_PAGES + 5}),
+    ("verify", B_SLICE, 5, [14, 15, 16, 300, 1020, -2, 47, 511],
+     [True, True, True, True, True, True, False, True], None, {}),
+    ("admission wlen", 1, 512, 0, None, 300, {}),
+    ("admission 261", 1, 512, 261, None, None, {}),
+    ("admission past", 1, 512, 700, None, None, {}),
+    ("block -3", 1, 8, -3, None, None, {}),
+)
+# (pool, rows) dtypes: the f32 model's rows into bf16, f32 and int8 pools
+# (phases 9-12), and bf16 rows into each
+KV_PAGED_KINDS = (("bf16", "f32"), ("f32", "f32"), ("int8", "f32"),
+                  ("bf16", "bf16"), ("f32", "bf16"), ("int8", "bf16"))
+
+
+def check_kv_paged_write(torch, np, cw, flush, rng_pos):
+    """Phase 3, B3 paged fused: ``kv_paged_write`` against its plain version
+    (and the composite it replaced) into two [512, 16, 12, 64] pool halves
+    with 64-page tables, the rows cut from a [B, S, 3 x 768] qkv output as
+    the model cuts them; every case of KV_PAGED_CASES in every kind of
+    KV_PAGED_KINDS, both pool leaves compared (NaN where NaN: one k head
+    row is all zero, one v row holds a NaN). Times the main path's rows
+    (f32 rows; decode, n = 8 a half, and admission, n = 512) beside the
+    composite, index_put_ on each leaf with the indices precomputed, and
+    the byte bound."""
+    NP, PS, nkv, hd = NUM_PAGES, PAGE, NKV, HD
+    PM, H = L_SLICE // PS, NKV * HD
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rng = np.random.default_rng(9)
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
+
+    def pool(kind):
+        shape = (NP, PS, nkv, hd)
+        if kind == "int8":
+            return {"pages": torch.randint(-127, 128, shape, device=dev,
+                                           generator=gen, dtype=torch.int8),
+                    "scale": torch.rand(shape[:3], device=dev,
+                                        generator=gen)}
+        return {"pages": torch.randn(shape, device=dev,
+                                     generator=gen).to(dts[kind])}
+
+    def inputs(case, rows_kind, specials=True):
+        _, B, S, pos, live, wlen, bad = case
+        pos = rng_pos if pos is None else pos
+        qkv = torch.randn(B, S, 3 * H, device=dev, generator=gen)
+        if specials:
+            qkv[0, 0, H:H + hd] = 0.0
+            qkv[-1, -1, 2 * H + 2 * hd + 5] = float("nan")
+        qkv = qkv.to(dts[rows_kind])
+        k = qkv[..., H:2 * H].reshape(B, S, nkv, hd)
+        v = qkv[..., 2 * H:].reshape(B, S, nkv, hd)
+        bt = rng.permutation(NP)[:B * PM].reshape(B, PM).astype(np.int64)
+        for (b, slot), page in bad.items():
+            bt[b, slot] = page
+        n_rows, entries = kv_targets(np, bt, pos, S, PS, live, wlen, NP)
+        tpos = (torch.tensor(pos, dtype=torch.int32, device=dev)
+                if isinstance(pos, list) else pos)
+        tlive = None if live is None else torch.tensor(live, device=dev)
+        return (k, v, torch.from_numpy(bt).to(dev), tpos, tlive, wlen,
+                n_rows, entries)
+
+    def clone(p):
+        return {n: t.clone() for n, t in p.items()}
+
+    for kind, rows_kind in KV_PAGED_KINDS:
+        for case in KV_PAGED_CASES:
+            k, v, bt, pos, live, wlen, _, _ = inputs(case, rows_kind)
+            pools = [pool(kind), pool(kind)]
+            got, want, comp = ([clone(p) for p in pools] for _ in range(3))
+            cw.kv_paged_write(k, v, *got, bt, pos, live, wlen)
+            cw.kv_paged_write_plain(k, v, *want, bt, pos, live, wlen)
+            for p, rows in zip(comp, (k, v)):
+                composite_paged_write(torch, cw, p, rows, bt, pos, live,
+                                      wlen)
+            torch.cuda.synchronize()
+            for g, w, c, p in zip(got, want, comp, pools):
+                for n in p:
+                    if not same(torch, g[n], w[n]) or torch.equal(g[n],
+                                                                  p[n]):
+                        fail(f"kv_paged_write {kind} pool, {rows_kind} rows"
+                             f", {case[0]}: {n} differs from the plain "
+                             "version's (or nothing was written)")
+                    if not same(torch, c[n], w[n]):
+                        fail(f"kv_paged_write {kind} pool, {rows_kind} rows"
+                             f", {case[0]}: the composite's {n} differs "
+                             "from the plain version's")
+        print(f"  kv_paged_write {kind} pool, {rows_kind} rows: bit-exact "
+              f"(NaN where NaN) with the plain version and the composite in "
+              f"{len(KV_PAGED_CASES)} cases", flush=True)
+
+    rows = {}
+    for kind, shape in (("bf16", "decode"), ("int8", "decode"),
+                        ("f32", "decode"), ("bf16", "admission"),
+                        ("int8", "admission")):
+        case = ((shape, B_SLICE, 1, None, None, None, {})
+                if shape == "decode" else (shape, 1, 512, 0, None, None, {}))
+        k, v, bt, pos, _, _, n_rows, entries = inputs(case, "f32",
+                                                       specials=False)
+        pools = [pool(kind), pool(kind)]
+        ms = timed(torch, lambda: cw.kv_paged_write(k, v, *pools, bt, pos),
+                   flush)
+        plain_ms = timed(torch, lambda: cw.kv_paged_write_plain(
+            k, v, *pools, bt, pos), flush)
+
+        def composite():
+            for p, r in zip(pools, (k, v)):
+                composite_paged_write(torch, cw, p, r, bt, pos)
+        comp_ms = timed(torch, composite, flush)
+        S = k.shape[1]
+        t = (pos.long()[:, None] if isinstance(pos, torch.Tensor)
+             else torch.full((1, 1), pos, device=dev)) + torch.arange(
+                 S, device=dev)
+        phys = torch.gather(bt, 1, t // PS).reshape(-1)
+        off = (t % PS).reshape(-1)
+        leaves = []
+        for p, r in zip(pools, (k, v)):
+            if kind == "int8":
+                q, s = cw.quant_rows(r)
+                leaves += [(p["pages"], q.reshape(-1, nkv, hd)),
+                           (p["scale"], s.reshape(-1, nkv))]
+            else:
+                leaves.append((p["pages"], r.to(p["pages"].dtype).reshape(
+                    -1, nkv, hd)))
+
+        def lib():
+            for dst, src in leaves:
+                dst.index_put_((phys, off), src)
+        lib_ms = timed(torch, lib, flush)
+        el = pools[0]["pages"].element_size()
+        nbytes = (2 * n_rows * nkv * hd * (k.element_size() + el)
+                  + (2 * n_rows * nkv * 4 if kind == "int8" else 0)
+                  + entries * 8
+                  + (k.shape[0] * 4 if isinstance(pos, torch.Tensor) else 0))
+        bound_ms, by = bound(nbytes, 0)
+        rows[(kind, shape)] = dict(ms=ms, plain_ms=plain_ms,
+                                   composite_ms=comp_ms, library_ms=lib_ms,
+                                   bound_ms=bound_ms, bound_by=by,
+                                   bytes=nbytes)
+        print(f"  kv_paged_write {kind} pool, f32 rows, n={n_rows} a half "
+              f"({shape}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"composite (2 calls) {comp_ms:.4f} ms, index_put_ "
+              f"({len(leaves)} leaves) {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({by}: {nbytes} B)", flush=True)
+    return rows
+
+
+def check_kv_slot_write(torch, cw, flush, rng_pos):
+    """Phase 3, B3 slot fused: ``kv_slot_write`` against its plain version
+    on the int8 slot decode's four planes ([8, 1024, 12, 64] int8 data and
+    [8, 1024, 12] f32 scales, k and v) at pos sets with -1, L and L + 7,
+    and on one, two and three planes of other types (bf16 rows of 3 x 33,
+    f32 data, an f32 plane of 5); times the four int8 planes beside four
+    fused_slot_write launches, four index_put_ calls and the byte bound."""
+    B, L, nkv, hd = B_SLICE, L_SLICE, NKV, HD
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def int8_planes():
+        out = []
+        for _ in range(2):
+            out.append((torch.randint(-127, 128, (B, L, nkv, hd), device=dev,
+                                      generator=gen, dtype=torch.int8),
+                        torch.randint(-127, 128, (B, 1, nkv, hd), device=dev,
+                                      generator=gen, dtype=torch.int8)))
+            out.append((torch.rand(B, L, nkv, device=dev, generator=gen),
+                        torch.rand(B, 1, nkv, device=dev, generator=gen)))
+        return out
+
+    def other_planes(n):
+        shapes = [((3, 33), torch.bfloat16), ((nkv, hd), torch.float32),
+                  ((5,), torch.float32)][:n]
+        return [(torch.randn((B, L) + s, device=dev, generator=gen).to(dt),
+                 torch.randn((B, 1) + s, device=dev, generator=gen).to(dt))
+                for s, dt in shapes]
+
+    odd = [L + 7, 0, -1, 3, 1000, L - 1, 2, 64]
+    cases = [(int8_planes, [0, 1, 5, 5, 511, 700, L - 1, L]),
+             (int8_planes, odd), (int8_planes, rng_pos)] + [
+        (lambda n=n: other_planes(n), odd) for n in (1, 2, 3)]
+    for make, pv in cases:
+        planes = make()
+        pos = torch.tensor(pv, dtype=torch.int32, device=dev)
+        got = [c.clone() for c, _ in planes]
+        want = [c.clone() for c, _ in planes]
+        cw.kv_slot_write(got, [r for _, r in planes], pos)
+        cw.kv_slot_write_plain(want, [r for _, r in planes], pos)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"kv_slot_write {len(planes)} planes pos={pv}: caches "
+                 "differ from the plain version's")
+    planes = int8_planes()
+    caches, rws = [c for c, _ in planes], [r for _, r in planes]
+    pos = torch.tensor(rng_pos, dtype=torch.int32, device=dev)
+    ms = timed(torch, lambda: cw.kv_slot_write(caches, rws, pos), flush)
+    plain_ms = timed(torch, lambda: cw.kv_slot_write_plain(caches, rws, pos),
+                     flush)
+
+    def composite():
+        for c, r in planes:
+            cw.fused_slot_write(c, r, pos)
+    comp_ms = timed(torch, composite, flush)
+    ar, pl = torch.arange(B, device=dev), pos.long()
+
+    def lib():
+        for c, r in planes:
+            c[ar, pl] = r[:, 0]
+    lib_ms = timed(torch, lib, flush)
+    nbytes = sum(2 * r.numel() * r.element_size() for r in rws) + B * 4
+    bound_ms, by = bound(nbytes, 0)
+    print(f"  kv_slot_write: bit-exact in {len(cases)} cases (4 int8 planes "
+          f"at three pos sets; 1, 2, 3 planes of bf16 / f32); 4 int8 planes:"
+          f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, 4 x "
+          f"fused_slot_write {comp_ms:.4f} ms, 4 x index_put_ {lib_ms:.4f} "
+          f"ms, bound {bound_ms:.6f} ms ({by}: {nbytes} B)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, composite_ms=comp_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+                bytes=nbytes)
 
 
 def close(torch, got, want, rtol, atol_frac):
@@ -996,8 +1342,8 @@ def profile_window(torch, what, fn, top=10):
     ``top`` largest) and the device's busy share of the window's wall
     time. Prints "not measured" when the profiler reports no device time.
     Only device events count: a CPU op's device time repeats its
-    kernels'. Returns [(device us, count, kernel name)] (empty when not
-    measured)."""
+    kernels'. Returns ([(device us, count, kernel name)] (empty when not
+    measured), the window's wall us)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1015,7 +1361,7 @@ def profile_window(torch, what, fn, top=10):
     if not rows:
         print(f"  profiled {what}: device time not measured (the profiler "
               "reported none)", flush=True)
-        return rows
+        return rows, wall_us
     print(f"  profiled {what}: wall {wall_us / 1e3:.1f} ms (profiler on), "
           f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.0f}"
           " % of wall; one stream, so kernels do not overlap); top by "
@@ -1023,7 +1369,7 @@ def profile_window(torch, what, fn, top=10):
     for us, n, key in sorted(rows, reverse=True)[:top]:
         print(f"    {us / 1e3:8.3f} ms {100 * us / busy_us:5.1f} % x{n:<5d} "
               f"{key[:90]}", flush=True)
-    return rows
+    return rows, wall_us
 
 
 def train_step(torch, pkg, steps=5, sp=1):
@@ -1212,45 +1558,73 @@ def post_all(url, prompts, max_new):
     return results
 
 
+# the kernel wrappers a serving path may reach, by module: the fused
+# writes are the serving paths' own; the per-plane writes must not run
+# there. A tree without one of them (an earlier commit, for --serving)
+# reports the others.
+SERVE_KERNELS = (("md", "mega_decode_step"), ("cw", "kv_slot_write"),
+                 ("cw", "kv_paged_write"), ("cw", "fused_slot_write"),
+                 ("cw", "fused_paged_write"))
+
+
+def forwards(st):
+    """Model forwards an engine ran: one per admission, one per verify
+    tick, tick_tokens per plain tick."""
+    spec = st.get("spec_ticks", 0)
+    return st["admitted"] + spec + (st["ticks"] - spec) * TICK
+
+
 def serve(torch, pkg, model, cache_dtype, prompts, slots=8, profile=False,
           **engine_kw):
     """Serve ``prompts`` through engine + HTTP server with the launch
     counters zeroed just before, and every plain version of a serving
     kernel counted; returns a dict of the token lists, the engine's stats
-    just after the requests, the launch counts and the wall seconds.
-    Fails on a malformed reply or a plain call. With ``profile``, serves
-    the same prompts once more under torch.profiler after reading the
-    counts (a paged engine's prefix cache is warm by then)."""
-    md, cw = pkg["md"], pkg["cw"]
+    just after the requests, the launch counts, the wall seconds and ms a
+    tick. Fails on a malformed reply or a plain call. With ``profile``,
+    serves the same prompts once more under torch.profiler after reading
+    the counts (a paged engine's prefix cache is warm by then) and adds the
+    device busy share and the device kernels a forward of that rerun."""
+    wrappers = {name: getattr(pkg[m], name) for m, name in SERVE_KERNELS
+                if hasattr(pkg[m], name)}
     eng = pkg["Engine"](model, slots=slots, max_len=L_SLICE,
                         cache_dtype=cache_dtype, tick_tokens=TICK,
                         **engine_kw)
     srv = pkg["Server"](eng, host="127.0.0.1", port=0, deadline_s=600).start()
     what = f"{cache_dtype}{' paged' if eng.paged else ''}" + (
         " speculative" if engine_kw.get("speculative") else "")
-    plain, restore = _count_plain([md, cw])
+    plain, restore = _count_plain([pkg["md"], pkg["cw"]])
+    out = {}
     try:
         url = f"http://{srv.host}:{srv.port}"
         with urllib.request.urlopen(url + "/health", timeout=60) as r:
             if json.loads(r.read()) != {"status": "ok"}:
                 fail("/health")
-        md.mega_decode_step.launches = 0
-        cw.fused_slot_write.launches = 0
-        cw.fused_paged_write.launches = 0
+        for w in wrappers.values():
+            w.launches = 0
         t0 = time.perf_counter()
         res = post_all(url, prompts, MAX_NEW)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {"mega_decode_step": md.mega_decode_step.launches,
-                  "fused_slot_write": cw.fused_slot_write.launches,
-                  "fused_paged_write": cw.fused_paged_write.launches}
+        counts = {n: w.launches for n, w in wrappers.items()}
         stats = eng.stats()
         if eng.paged:
             eng._allocator.check()
         if profile:
-            prof = profile_window(
+            prof, wall_us = profile_window(
                 torch, f"{what} serving, the same {len(prompts)} requests "
                 "again", lambda: post_all(url, prompts, MAX_NEW), top=8)
+            n_fwd = forwards(eng.stats()) - forwards(stats)
+            if prof:
+                busy_us = sum(r[0] for r in prof)
+                n_kern = sum(r[1] for r in prof)
+                out.update(busy_share=busy_us / wall_us,
+                           kernels_per_forward=n_kern / n_fwd,
+                           profiled_wall_ms=wall_us / 1e3,
+                           busy_ms=busy_us / 1e3)
+                print(f"    device kernels {n_kern} over {n_fwd} forwards: "
+                      f"{n_kern / n_fwd:.1f} a forward; busy "
+                      f"{100 * busy_us / wall_us:.1f} % of the window",
+                      flush=True)
             b4 = [r for r in prof if "mega_decode" in r[2]]
             if b4:
                 us = sum(r[0] for r in b4)
@@ -1275,12 +1649,23 @@ def serve(torch, pkg, model, cache_dtype, prompts, slots=8, profile=False,
         toks.append(t)
     if any(plain.values()):
         fail(f"{what}: plain versions ran on the card: {plain}")
+    ms_tick = 1e3 * wall / stats["ticks"]
     print(f"  {what}: {len(prompts)} requests x {MAX_NEW} tokens in "
           f"{wall:.3f} s ({len(prompts) * MAX_NEW / wall:.1f} new tok/s "
-          f"incl. prefill), {stats['ticks']} ticks, launches {counts}",
+          f"incl. prefill), {stats['ticks']} ticks ({ms_tick:.2f} ms a tick, "
+          f"host clock), {forwards(stats)} forwards, launches {counts}",
           flush=True)
-    return {"toks": toks, "stats": stats, "ticks": stats["ticks"],
-            "counts": counts, "wall": wall}
+    out.update(toks=toks, stats=stats, ticks=stats["ticks"], counts=counts,
+               wall=wall, ms_tick=ms_tick)
+    return out
+
+
+def expect_launches(what, counts, **want):
+    """Fail unless every counted wrapper launched as ``want`` says (those
+    not named: never)."""
+    full = {n: want.get(n, 0) for n in counts}
+    if counts != full:
+        fail(f"{what}: launches {counts} != {full}")
 
 
 def check_oracle(torch, pkg, oracle, prompts, toks, what):
@@ -1311,21 +1696,17 @@ def check_oracle(torch, pkg, oracle, prompts, toks, what):
     print(f"  {what} tokens match the sequential CPU oracle", flush=True)
 
 
-def paged_launch_check(run, halves_per_layer):
-    """B3-paged launches must equal the forwards the engine ran (one per
-    admission, one per verify tick, tick_tokens per plain tick) x 12
-    layers x the pool leaves written per layer; B4 and B3 slot never."""
+def paged_launch_check(run, what):
+    """kv_paged_write launches must equal the forwards the engine ran (one
+    per admission, one per verify tick, tick_tokens per plain tick) x 12
+    layers, one launch a layer for both halves whatever the pool's type;
+    every other serving kernel never."""
     st = run["stats"]
-    spec = st.get("spec_ticks", 0)
-    forwards = st["admitted"] + spec + (st["ticks"] - spec) * TICK
-    want = forwards * LAYERS * halves_per_layer
-    c = run["counts"]
-    if (c["fused_paged_write"] != want or c["mega_decode_step"]
-            or c["fused_slot_write"]):
-        fail(f"paged launches {c} != paged {want} (= ({st['admitted']} "
-             f"admissions + {spec} verify ticks + {st['ticks'] - spec} "
-             f"ticks x {TICK}) x {LAYERS} x {halves_per_layer}), B4 0, "
-             "slot 0")
+    want = forwards(st) * LAYERS
+    expect_launches(f"{what} (({st['admitted']} admissions + "
+                    f"{st.get('spec_ticks', 0)} verify ticks + plain ticks "
+                    f"x {TICK}) x {LAYERS})", run["counts"],
+                    kv_paged_write=want)
     return want
 
 
@@ -1336,6 +1717,69 @@ def check_pool(run):
         fail(f"paged pool after the requests: active {st['active']}, "
              f"pages_used {st['pages_used']} != pages_cached_prefix "
              f"{st['pages_cached_prefix']}")
+
+
+def serving_prompts(np, vocab):
+    """Each serving phase's prompts, from a generator of its own (seeded
+    with the phase number), so that ``--serving`` serves phases 6, 9 and
+    11 with the prompts the full run serves them: 8 prompts of 16-300
+    tokens (phase 4), 4 (phases 5, 6, 11); phase 9's 8 share a 256-token
+    prefix before 16-200 tokens of their own; phase 10 repeats a 128-token
+    prompt; phase 12's repeat a 32-token motif 3-5 times."""
+    out = {}
+    for ph, n in ((4, 8), (5, 4), (6, 4), (11, 4)):
+        rng = np.random.default_rng(ph)
+        out[ph] = [rng.integers(0, vocab, int(m))
+                   for m in rng.integers(16, 301, n)]
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(0, vocab, 16 * PAGE)
+    out[9] = [np.concatenate([prefix, rng.integers(0, vocab, int(m))])
+              for m in rng.integers(16, 201, 8)]
+    rng = np.random.default_rng(10)
+    a = rng.integers(0, vocab, 8 * PAGE)
+    out[10] = [a] + [rng.integers(0, vocab, int(m))
+                     for m in rng.integers(16, 301, 2)] + [a.copy()]
+    rng = np.random.default_rng(12)
+    out[12] = [np.tile(rng.integers(0, vocab, 32), int(r))
+               for r in rng.integers(3, 6, 4)]
+    return out
+
+
+def serving_summary(runs, card):
+    """One line a serving phase of ``runs`` ({phase: serve()'s result}):
+    the wall, ticks, ms a tick, the profiled rerun's device busy share and
+    device kernels a forward, and the launches, with the card."""
+    for ph, run in runs.items():
+        print(f"  serving phase {ph}: " + json.dumps({
+            k: run.get(k) for k in ("wall", "ticks", "ms_tick", "busy_share",
+                                    "kernels_per_forward", "counts")}) +
+            f" ({card})", flush=True)
+
+
+def serving_profiles(torch, pkg, card):
+    """``--serving``: phases 6, 9 and 11 alone (int8 slot cache, bf16 and
+    int8 paged pools; the full run's prompts and weights) after a warm-up
+    serve, each served and then profiled, with no launch-count checks
+    (libraries built earlier are taken as they are): a before/after
+    measurement that runs on an earlier commit too."""
+    np = pkg["np"]
+    model = pkg["GPT"](pkg["gpt_125m"](), seed=0)
+    prompts = serving_prompts(np, model.cfg.vocab_size)
+    paged = dict(paged=True, page_size=PAGE, prefix_cache=True)
+    runs = {}
+    print("warm-up: phase 4's requests, bf16 slot cache (not reported)",
+          flush=True)
+    serve(torch, pkg, model, "bfloat16", prompts[4])
+    print("phase 6: serving, int8 cache", flush=True)
+    runs[6] = serve(torch, pkg, model, "int8", prompts[6], profile=True)
+    print("phase 9: paged serving, bf16 pool", flush=True)
+    runs[9] = serve(torch, pkg, model, "bfloat16", prompts[9], profile=True,
+                    **paged)
+    print("phase 11: paged serving, int8 pool", flush=True)
+    runs[11] = serve(torch, pkg, model, "int8", prompts[11], profile=True,
+                     **paged)
+    serving_summary(runs, card)
+    print(card, flush=True)
 
 
 def main():
@@ -1381,7 +1825,7 @@ def main():
     print("phase 2: build", flush=True)
     t0 = time.perf_counter()
     per = _build.build()
-    if sorted(per) != sorted(_build.SOURCES):
+    if sorted(per) != sorted(_build.SOURCES) and sys.argv[1:] != ["--serving"]:
         fail(f"build: compiled {sorted(per)}, expected {_build.SOURCES}")
     print(f"  built {len(per)} libraries in {time.perf_counter() - t0:.2f} "
           "s (" + ", ".join(f"{n} {t:.2f} s" for n, t in per.items()) +
@@ -1404,6 +1848,15 @@ def main():
               f"registers; spills only where there are any): "
               + ", ".join(rows), flush=True)
 
+    cw_ptxas = _build.ptxas_report("cache_write")
+    regs = sorted(int(r.split()[0]) for _, r, _ in cw_ptxas)
+    spilled = [short_kernel_name(k) for k, _, sp in cw_ptxas
+               if not sp.startswith("0 bytes stack frame, 0 bytes spill "
+                                    "stores, 0 bytes spill loads")]
+    print(f"  ptxas cache_write: {len(cw_ptxas)} kernels, {regs[0]}-"
+          f"{regs[-1]} registers; stack or spills in {spilled or 'none'}",
+          flush=True)
+
     if sys.argv[1:] == ["--sp-cards"]:
         if torch.cuda.device_count() < SP:
             fail(f"--sp-cards needs {SP} cards, found "
@@ -1414,6 +1867,9 @@ def main():
                            [f"cuda:{i}" for i in range(SP)], timing=True)
         print(card, flush=True)
         return
+    if sys.argv[1:] == ["--serving"]:
+        serving_profiles(torch, pkg, card)
+        return
 
     print("phase 3: kernels vs plain versions", flush=True)
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -1421,8 +1877,11 @@ def main():
     rng_pos = [int(x) for x in rng.integers(16, 16 + 300 + MAX_NEW,
                                             B_SLICE)]
     b4_errs, b4_rows = check_mega_decode(torch, md, flush, rng_pos)
+    check_quant(torch, cw)
     b3_rows = check_slot_write(torch, cw, flush, rng_pos)
+    kvs_row = check_kv_slot_write(torch, cw, flush, rng_pos)
     b3p_rows = check_paged_write(torch, np, cw, flush)
+    kvp_rows = check_kv_paged_write(torch, np, cw, flush, rng_pos)
     b1_errs, b1_rows = check_flash(torch, fa, flush)
     b2_errs, b2_rows = check_ce(torch, ce, flush)
     b5_errs, b5_rows = check_flash_block(torch, fb, flush)
@@ -1431,42 +1890,30 @@ def main():
 
     print("phase 4: serving gpt_125m, bf16 cache", flush=True)
     model = GPTForCausalLM(gpt_125m(), seed=0)        # the card by default
-    vocab = model.cfg.vocab_size
-    prompts = [rng.integers(0, vocab, int(n))
-               for n in rng.integers(16, 301, 8)]
-    run4 = serve(torch, pkg, model, "bfloat16", prompts, profile=True)
-    ticks, counts = run4["ticks"], run4["counts"]
-    want = ticks * TICK * LAYERS
-    if (counts["mega_decode_step"] != want or counts["fused_slot_write"]
-            or counts["fused_paged_write"]):
-        fail(f"bf16 launches {counts} != mega {want} (= {ticks} ticks x "
-             f"{TICK} x {LAYERS}), slot 0, paged 0")
-    b4_launches = counts["mega_decode_step"]
+    prompts = serving_prompts(np, model.cfg.vocab_size)
+    run4 = serve(torch, pkg, model, "bfloat16", prompts[4], profile=True)
+    b4_launches = run4["ticks"] * TICK * LAYERS
+    expect_launches(f"phase 4 (mega = {run4['ticks']} ticks x {TICK} x "
+                    f"{LAYERS})", run4["counts"],
+                    mega_decode_step=b4_launches)
 
     print("phase 5: serving, f32 cache vs the sequential CPU oracle",
           flush=True)
-    prompts5 = [rng.integers(0, vocab, int(n))
-                for n in rng.integers(16, 301, 4)]
-    run5 = serve(torch, pkg, model, "float32", prompts5, slots=4)
-    if run5["counts"]["mega_decode_step"] != run5["ticks"] * TICK * LAYERS:
-        fail(f"f32 launches {run5['counts']} != {run5['ticks']} x {TICK} x "
-             f"{LAYERS}")
+    run5 = serve(torch, pkg, model, "float32", prompts[5], slots=4)
+    expect_launches(f"phase 5 (mega = {run5['ticks']} ticks x {TICK} x "
+                    f"{LAYERS})", run5["counts"],
+                    mega_decode_step=run5["ticks"] * TICK * LAYERS)
     oracle = GPTForCausalLM(gpt_125m(), device="cpu", seed=1)
     load_paddle_tpu_params(oracle, {n: p.detach().cpu().numpy()
                                     for n, p in model.named_parameters()})
-    check_oracle(torch, pkg, oracle, prompts5, run5["toks"], "f32 serving")
+    check_oracle(torch, pkg, oracle, prompts[5], run5["toks"], "f32 serving")
 
     print("phase 6: serving, int8 cache", flush=True)
-    prompts6 = [rng.integers(0, vocab, int(n))
-                for n in rng.integers(16, 301, 4)]
-    run6 = serve(torch, pkg, model, "int8", prompts6)
-    ticks, counts = run6["ticks"], run6["counts"]
-    want = ticks * TICK * LAYERS * 4
-    if (counts["fused_slot_write"] != want or counts["mega_decode_step"]
-            or counts["fused_paged_write"]):
-        fail(f"int8 launches {counts} != slot {want} (= {ticks} x {TICK} x "
-             f"{LAYERS} x 4), mega 0, paged 0")
-    b3_launches = counts["fused_slot_write"]
+    run6 = serve(torch, pkg, model, "int8", prompts[6], profile=True)
+    kvs_launches = run6["ticks"] * TICK * LAYERS
+    expect_launches(f"phase 6 (kv_slot_write = {run6['ticks']} ticks x "
+                    f"{TICK} x {LAYERS} x 1)", run6["counts"],
+                    kv_slot_write=kvs_launches)
     del model
 
     print("phase 7: training parity, f32 gpt_125m on the card vs the CPU",
@@ -1483,10 +1930,7 @@ def main():
     paged = dict(paged=True, page_size=PAGE, prefix_cache=True)
     print("phase 9: paged serving gpt_125m, bf16 pool, shared 256-token "
           "prefix", flush=True)
-    prefix = rng.integers(0, vocab, 16 * PAGE)
-    prompts9 = [np.concatenate([prefix, rng.integers(0, vocab, int(n))])
-                for n in rng.integers(16, 201, 8)]
-    run9 = serve(torch, pkg, model, "bfloat16", prompts9, profile=True,
+    run9 = serve(torch, pkg, model, "bfloat16", prompts[9], profile=True,
                  **paged)
     st = run9["stats"]
     if st["pages_total"] != NUM_PAGES:
@@ -1497,7 +1941,7 @@ def main():
              f"{st['prefix_misses']}/{st['prefix_tokens_saved']} != 7/1/"
              f"{7 * 16 * PAGE}")
     check_pool(run9)
-    b3p_launches = paged_launch_check(run9, 2)
+    kvp_launches = paged_launch_check(run9, "phase 9")
     print(f"  prefix hits {st['prefix_hits']}, tokens saved "
           f"{st['prefix_tokens_saved']}, prefilled {st['prefill_tokens']}; "
           f"pages in use after {st['pages_used']} (= cached prefix), "
@@ -1506,36 +1950,31 @@ def main():
 
     print("phase 10: paged serving, f32 pool vs the sequential CPU oracle",
           flush=True)
-    a = rng.integers(0, vocab, 8 * PAGE)
-    prompts10 = [a] + [rng.integers(0, vocab, int(n))
-                       for n in rng.integers(16, 301, 2)] + [a.copy()]
-    run10 = serve(torch, pkg, model, "float32", prompts10, slots=4, **paged)
+    run10 = serve(torch, pkg, model, "float32", prompts[10], slots=4,
+                  **paged)
     st = run10["stats"]
-    want_prefill = sum(len(p) for p in prompts10[:3]) + 1
+    want_prefill = sum(len(p) for p in prompts[10][:3]) + 1
     if st["prefix_hits"] != 1 or st["prefill_tokens"] != want_prefill:
         fail(f"COW admission: prefix hits {st['prefix_hits']} != 1 or "
              f"prefilled {st['prefill_tokens']} != {want_prefill}")
     check_pool(run10)
-    paged_launch_check(run10, 2)
-    check_oracle(torch, pkg, oracle, prompts10, run10["toks"],
+    paged_launch_check(run10, "phase 10")
+    check_oracle(torch, pkg, oracle, prompts[10], run10["toks"],
                  "f32 paged serving")
 
     print("phase 11: paged serving, int8 pool", flush=True)
-    prompts11 = [rng.integers(0, vocab, int(n))
-                 for n in rng.integers(16, 301, 4)]
-    run11 = serve(torch, pkg, model, "int8", prompts11, **paged)
+    run11 = serve(torch, pkg, model, "int8", prompts[11], profile=True,
+                  **paged)
     check_pool(run11)
-    paged_launch_check(run11, 4)
+    paged_launch_check(run11, "phase 11")
 
     print("phase 12: n-gram speculative decoding, spec_k=4, paged f32 pool",
           flush=True)
-    prompts12 = [np.tile(rng.integers(0, vocab, 32), int(r))
-                 for r in rng.integers(3, 6, 4)]
-    run12 = serve(torch, pkg, model, "float32", prompts12, slots=4,
+    run12 = serve(torch, pkg, model, "float32", prompts[12], slots=4,
                   speculative="ngram", spec_k=4, **paged)
     st = run12["stats"]
     check_pool(run12)
-    paged_launch_check(run12, 2)
+    paged_launch_check(run12, "phase 12")
     if not (st["spec_ticks"] > 0 and st["acceptance_rate"] > 0
             and st["accepted_tokens_per_tick"] > 1):
         fail(f"speculative: spec ticks {st['spec_ticks']}, acceptance "
@@ -1545,9 +1984,10 @@ def main():
           f"{st['tokens_drafted']}, accepted {st['tokens_accepted']} "
           f"(rate {st['acceptance_rate']}), {st['accepted_tokens_per_tick']}"
           " tokens per slot per verify tick", flush=True)
-    check_oracle(torch, pkg, oracle, prompts12, run12["toks"],
+    check_oracle(torch, pkg, oracle, prompts[12], run12["toks"],
                  "speculative paged serving")
     del model, oracle
+    serving_summary({6: run6, 9: run9, 11: run11}, card)
 
     print(f"phase 13: sequence-parallel attention, sp={SP}, B={B_SLICE} "
           f"H={NKV} D={HD}", flush=True)
@@ -1576,6 +2016,8 @@ def main():
     main_b4 = b4_rows[("bf16", "serving-like pos")]
     main_b3 = b3_rows["int8 data"]
     main_b3p = b3p_rows[("bf16 pages", "decode")]
+    main_kvp = kvp_rows[("bf16", "decode")]
+    cw_src = "paddle_tpu_torch/kernels/csrc/cache_write.cu"
     kernels = [
         {"name": "mega_decode_step", "route": "cuda",
          "source": "paddle_tpu_torch/kernels/csrc/mega_decode.cu",
@@ -1584,22 +2026,22 @@ def main():
          "max_abs_err": b4_errs[(torch.float32, torch.bfloat16)],
          "ms": main_b4["ms"], "plain_ms": main_b4["plain_ms"],
          "bound_ms": main_b4["bound_ms"], "bound_by": main_b4["bound_by"],
-         "library_ms": main_b4["library_ms"]},
-        {"name": "fused_slot_write", "route": "cuda",
-         "source": "paddle_tpu_torch/kernels/csrc/cache_write.cu",
-         "replaces": "paddle_tpu/kernels/cache_write.py:75",
-         "launches": b3_launches, "max_abs_err": 0.0,
-         "ms": main_b3["ms"], "plain_ms": main_b3["plain_ms"],
-         "bound_ms": main_b3["bound_ms"], "bound_by": main_b3["bound_by"],
-         "library_ms": main_b3["library_ms"]},
-        {"name": "fused_paged_write", "route": "cuda",
-         "source": "paddle_tpu_torch/kernels/csrc/cache_write.cu",
-         "replaces": "paddle_tpu/kernels/cache_write.py:171",
-         "launches": b3p_launches, "max_abs_err": 0.0,
-         "ms": main_b3p["ms"], "plain_ms": main_b3p["plain_ms"],
-         "bound_ms": main_b3p["bound_ms"], "bound_by": main_b3p["bound_by"],
-         "library_ms": main_b3p["library_ms"]},
-    ]
+         "library_ms": main_b4["library_ms"]}]
+    # B3: the fused writes the serving paths launch (phases 6 and 9), and
+    # the per-plane ones, which no serving path launches any more
+    for name, replaces, n, row in (
+            ("kv_slot_write", 75, kvs_launches, kvs_row),
+            ("kv_paged_write", 171, kvp_launches, main_kvp),
+            ("fused_slot_write", 75, run6["counts"]["fused_slot_write"],
+             main_b3),
+            ("fused_paged_write", 171, run9["counts"]["fused_paged_write"],
+             main_b3p)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": cw_src,
+            "replaces": f"paddle_tpu/kernels/cache_write.py:{replaces}",
+            "launches": n, "max_abs_err": 0.0, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     b1_main = b1_errs[(torch.bfloat16, True, 0)]
     b1_f32 = b1_errs[(torch.float32, True, 0)]
     b2_main = b2_errs[(8192, torch.bfloat16, None)]

@@ -18,8 +18,9 @@ place. One engine thread runs the loop:
   on the device across the micro-steps and come to the host once per
   tick, as the JAX engine's one host sync per tick. Each micro-step's
   attention is the S=1 slot-decode path of ``cached_attention``: the
-  ``mega_decode_step`` kernel per layer for bf16/f32 caches, four
-  ``fused_slot_write`` launches per layer for int8 caches.
+  ``mega_decode_step`` kernel per layer for bf16/f32 caches, one
+  ``kv_slot_write`` launch per layer (all four int8 planes) for int8
+  caches.
 - retirement: a request ends on eos or its token budget; its future
   resolves to the int64 [P + max_new_tokens] array, eos-padded.
 
@@ -32,10 +33,11 @@ pages shared by all slots (per-layer pools [num_pages, page_size, nkv,
 hd] from ``model.new_paged_cache``); each slot holds a BLOCK TABLE row of
 physical page ids (host numpy, uploaded per call). Every micro-step
 attaches the table and the live mask to the per-layer pool dicts; the
-write goes through the ``fused_paged_write`` kernel (B3 paged) gated on
-``live``, so a dead slot, whose zeroed table row points at page 0, never
-writes into a page another request may own; the read gathers the slot's
-pages into the contiguous view. Admission (``_admit_paged``) matches the
+write goes through the ``kv_paged_write`` kernel (one launch a layer for
+both halves, the page arithmetic inside it) gated on ``live``, so a dead
+slot, whose zeroed table row points at page 0, never writes into a page
+another request may own; the read gathers the slot's pages into the
+contiguous view. Admission (``_admit_paged``) matches the
 prompt's complete pages in the prefix trie (``paging.py``), increfs the
 matches, allocates the rest all-or-nothing (evicting trie-only pages
 under pressure), copies the tail page on write when the whole prompt
@@ -49,8 +51,8 @@ drafts up to k tokens per slot on the host and, when any slot has a
 draft, runs ONE verify forward of ``[tok, d1..dk]`` for every slot
 instead of the plain tick; the emitted tokens are the target's own
 argmax, so output is token-identical to plain decode. Slot verify writes
-its k+1 rows per slot as plain tensor code; paged verify through B3
-paged (N·(k+1) rows per launch).
+its k+1 rows per slot as plain tensor code; paged verify through
+``kv_paged_write`` (N·(k+1) rows a half per launch).
 
 Not ported yet (ROADMAP.md): the draft-model proposer, tensor
 parallelism, sampling, observability metrics, AOT warmup.
@@ -77,7 +79,7 @@ import torch
 
 from ..device import resolve_device
 from ..framework.env import int_env
-from ..kernels.cache_write import fused_paged_write, fused_slot_write
+from ..kernels.cache_write import kv_paged_write, kv_slot_write
 from ..kernels.mega_decode import mega_decode_step
 from .paging import PageAllocator, PrefixTrie, pages_needed
 from .speculative import NGramProposer, resolve_speculative, verify_step
@@ -445,11 +447,11 @@ class ContinuousBatchingEngine:
                "device": str(self.device)}
         if self.paged:
             out["kernel_launches"] = {
-                "fused_paged_write": fused_paged_write.launches}
+                "kv_paged_write": kv_paged_write.launches}
         else:
             out["kernel_launches"] = {
                 "mega_decode_step": mega_decode_step.launches,
-                "fused_slot_write": fused_slot_write.launches}
+                "kv_slot_write": kv_slot_write.launches}
         if self._spec is not None:
             drafted = self.tokens_drafted
             out.update({

@@ -23,17 +23,20 @@ the optional write gates ``"live"`` ([B] bool: rows allowed to write) and
 ``"wlen"`` (only the first wlen of the S incoming rows write), which the
 engine attaches per call (``paged_kv_cache`` allocates the pool).
 The S=1 per-row slot-decode step (the engine's decode tick) goes through
-the hand-written kernels: ``mega_decode_step`` for tensor caches,
-``fused_slot_write`` inside ``_fused_decode_attention`` for int8 caches.
-These are the paths paddle_tpu takes with ``PADDLE_TPU_MEGA_DECODE`` and
-``PADDLE_TPU_FUSED_CACHE_WRITE`` on; the port has no unfused decode chain
-to fall back on. Prefill (scalar position) and multi-token per-row writes
-run as plain tensor code, as they run as XLA code in paddle_tpu. Every
-write into a paged pool goes through the ``fused_paged_write`` kernel (B3
-paged, as paddle_tpu with ``PADDLE_TPU_FUSED_CACHE_WRITE``); the paged read
-gathers pages through the block table and the attention is the general
-plain body, as both are XLA code there (the mega step is gated off for
-paged dicts in both packages).
+the hand-written kernels: ``mega_decode_step`` for tensor caches, one
+``kv_slot_write`` launch a layer (all four int8 planes) inside
+``_fused_decode_attention`` for int8 caches. These are the paths paddle_tpu
+takes with ``PADDLE_TPU_MEGA_DECODE`` and ``PADDLE_TPU_FUSED_CACHE_WRITE``
+on; the port has no unfused decode chain to fall back on. Prefill (scalar
+position) and multi-token per-row writes into slot caches run as plain
+tensor code, as they run as XLA code in paddle_tpu. Every write into a
+paged pool goes through the ``kv_paged_write`` kernel, one launch a layer
+for both halves with the block-table arithmetic, the write gates and the
+int8 quantisation inside it (paddle_tpu with
+``PADDLE_TPU_FUSED_CACHE_WRITE`` runs that arithmetic as XLA code around
+two ``fused_paged_write`` calls); the paged read gathers pages through the
+block table and the attention is the general plain body, as both are XLA
+code there (the mega step is gated off for paged dicts in both packages).
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ import math
 
 import torch
 
-from ...kernels.cache_write import fused_paged_write, fused_slot_write
+from ...kernels.cache_write import kv_paged_write, kv_slot_write
+from ...kernels.cache_write import quant_rows as _quant_rows
 from ...kernels.flash_attention import flash_attn_bwd, flash_attn_fwd
 from ...kernels.mega_decode import mega_decode_step
 
@@ -148,15 +152,6 @@ def quantized_kv_cache(batch, max_len, kv_heads, head_dim, device):
                                  dtype=torch.float32, device=device)}
 
 
-def _quant_rows(x):
-    """Per-(b, s, head) symmetric int8 quantisation of [B, S, nkv, hd]:
-    ``round(x / max(amax/127, 1e-12))``, round half to even as jnp.round."""
-    xf = x.float()
-    scale = xf.abs().amax(-1) / 127.0
-    q = torch.round(xf / torch.clamp(scale, min=1e-12)[..., None])
-    return q.to(torch.int8), scale
-
-
 def paged_kv_cache(num_pages, page_size, kv_heads, head_dim, dtype,
                    device):
     """One paged KV-cache half: the page pool only (block tables are
@@ -178,45 +173,14 @@ def _is_paged(cache) -> bool:
 
 
 def _paged_cache_write(cache, rows, pos):
-    """Write [B, S, nkv, hd] rows into a paged cache in place at global
-    positions [pos, pos+S) (scalar pos) or [pos[b], pos[b]+S) per row:
-    each lands at (page bt[b, t // PS], offset t % PS). The write gate
-    folds ``t < PM * PS`` (never past the table), ``live`` and ``wlen``
-    into ``valid``; the page slot is clipped into the table, as
-    paddle_tpu's ``_paged_cache_write``. One ``fused_paged_write`` launch
-    per pool leaf: one for bf16/f32 pools, two (pages, scale) for int8."""
-    pages, bt = cache["pages"], cache["bt"].long()
-    PS = pages.shape[1]
-    B, S = rows.shape[0], rows.shape[1]
-    PM = bt.shape[1]
-    dev = pages.device
-    s_ids = torch.arange(S, device=dev)
-    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
-        base = pos.to(torch.int64)[:, None]
-    else:
-        base = torch.full((B, 1), int(pos), dtype=torch.int64, device=dev)
-    t = base + s_ids[None, :]                                # [B, S]
-    valid = t < PM * PS
-    if "live" in cache:
-        valid = valid & cache["live"][:, None]
-    if "wlen" in cache:
-        valid = valid & (s_ids[None, :] < cache["wlen"])
-    page_slot = torch.clamp(torch.div(t, PS, rounding_mode="floor"), 0,
-                            PM - 1)
-    n = B * S
-    phys = torch.gather(bt, 1, page_slot).reshape(n).to(torch.int32)
-    off = torch.remainder(t, PS).reshape(n).to(torch.int32)
-    valid = valid.reshape(n).to(torch.int32)
-    if "scale" in cache:
-        qrows, scale = _quant_rows(rows)
-        fused_paged_write(pages, qrows.reshape((n,) + qrows.shape[2:]),
-                          phys, off, valid)
-        fused_paged_write(cache["scale"],
-                          scale.reshape((n,) + scale.shape[2:]), phys, off,
-                          valid)
-        return cache
-    fused_paged_write(pages, rows.to(pages.dtype).reshape(
-        (n,) + rows.shape[2:]).contiguous(), phys, off, valid)
+    """Write [B, S, nkv, hd] rows into one paged cache half in place at
+    global positions [pos, pos+S) (scalar pos) or [pos[b], pos[b]+S) per
+    row: each lands at (page bt[b, t // PS], offset t % PS), gated by ``t <
+    PM * PS`` (never past the table), ``live`` and ``wlen``, the page slot
+    clipped into the table, as paddle_tpu's ``_paged_cache_write``. One
+    ``kv_paged_write`` launch with one half."""
+    kv_paged_write(rows, None, cache, None, cache["bt"], pos,
+                   cache.get("live"), cache.get("wlen"))
     return cache
 
 
@@ -252,21 +216,12 @@ def _write_rows(arr, vals, pos):
 
 
 def _cache_write(cache, rows, pos):
-    """Write [B, S, nkv, hd] rows into a cache in place. Paged caches go
-    through ``fused_paged_write``; the per-row S=1 int8 slot form is the
-    slot decode hot path and goes through ``fused_slot_write``; the rest
-    is plain tensor code."""
-    if _is_paged(cache):
-        return _paged_cache_write(cache, rows, pos)
-    per_row = isinstance(pos, torch.Tensor) and pos.ndim == 1
+    """Write [B, S, nkv, hd] rows into a slot cache in place (int8 rows
+    quantised first): plain tensor code."""
     if isinstance(cache, dict):
         qrows, scale = _quant_rows(rows)
-        if per_row and rows.shape[1] == 1:
-            fused_slot_write(cache["data"], qrows, pos)
-            fused_slot_write(cache["scale"], scale, pos)
-        else:
-            _write_rows(cache["data"], qrows, pos)
-            _write_rows(cache["scale"], scale, pos)
+        _write_rows(cache["data"], qrows, pos)
+        _write_rows(cache["scale"], scale, pos)
         return cache
     _write_rows(cache, rows, pos)
     return cache
@@ -289,9 +244,9 @@ def _fused_decode_attention(q, k, v, kc, vc, pos):
 
     Attends the OLD cache under a strict ``< pos`` mask and merges the new
     row through its quantise -> dequantise round trip, then writes the
-    quantised rows and scales with four ``fused_slot_write`` launches. The
-    writes are issued after every read of the old cache on the same
-    stream, so they cannot overtake them."""
+    quantised rows and scales of both halves with one ``kv_slot_write``
+    launch. The write is issued after every read of the old cache on the
+    same stream, so it cannot overtake them."""
     ko, vo = _cache_read(kc), _cache_read(vc)
     B, L, nkv, hd = ko.shape
     nh = q.shape[2]
@@ -314,18 +269,22 @@ def _fused_decode_attention(q, k, v, kc, vc, pos):
     ctx = (p[..., None] * vo[:, :, :, None, :]).sum(1)
     ctx = ctx + p_new[..., None] * v_at
     ctx = (ctx / den[..., None]).reshape(B, 1, nh, hd).to(q.dtype)
-    fused_slot_write(kc["data"], kq, pos)
-    fused_slot_write(kc["scale"], ks, pos)
-    fused_slot_write(vc["data"], vq, pos)
-    fused_slot_write(vc["scale"], vs, pos)
+    kv_slot_write([kc["data"], kc["scale"], vc["data"], vc["scale"]],
+                  [kq, ks, vq, vs], pos)
     return ctx, kc, vc
 
 
 def _cached_attention_plain(q, k, v, kc, vc, pos):
     """Write, read, attend: the general form (scalar pos, or per-row pos
     with S > 1). Logits in f32; PV at the cache dtype, as paddle_tpu."""
-    _cache_write(kc, k, pos)
-    _cache_write(vc, v, pos)
+    if _is_paged(kc):
+        # both halves in one launch; the engine attaches one block table
+        # and one set of write gates to both
+        kv_paged_write(k, v, kc, vc, kc["bt"], pos, kc.get("live"),
+                       kc.get("wlen"))
+    else:
+        _cache_write(kc, k, pos)
+        _cache_write(vc, v, pos)
     ka, va = _cache_read(kc), _cache_read(vc)
     nh, nkv = q.shape[2], ka.shape[2]
     if nkv != nh:

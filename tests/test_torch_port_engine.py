@@ -95,7 +95,7 @@ def test_engine_tokens_match_jax_engine_and_generate(models, monkeypatch,
     assert stats["admitted"] == stats["completed"] == len(SHAPES)
     assert stats["active"] == 0 and stats["queued"] == 0
     assert set(stats["kernel_launches"]) == {"mega_decode_step",
-                                             "fused_slot_write"}
+                                             "kv_slot_write"}
 
 
 def test_eos_retires_and_pads(models, engine):

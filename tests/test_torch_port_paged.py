@@ -339,7 +339,7 @@ def test_paged_engine_matches_jax_paged_and_slot_engines(
             eng.stop()
         assert st["admitted"] == st["completed"] == len(prompts)
     assert set(st["kernel_launches"]) == {"mega_decode_step",
-                                          "fused_slot_write"}
+                                          "kv_slot_write"}
     for i, (ids, (p, n), w, g, s) in enumerate(zip(
             prompts, shapes, want, outs["paged"], outs["slot"])):
         assert g.shape == (p + n,)
