@@ -9,13 +9,16 @@ failure:
 1. card: name and power limit (nvidia-smi); TF32 matmuls off.
 2. build: compile every kernel from the repository's CUDA sources, one
    nvcc per source, all at once, each timed; ptxas's registers and spills
-   of every tensor-core flash kernel and the dynamic shared memory each
-   asks for.
+   of every tensor-core flash kernel (the bf16 wgmma ones and the f32
+   3xTF32 ones) and the dynamic shared memory each asks for.
 3. kernels: each kernel against its plain PyTorch version on the card at
    its slice's shapes; error, kernel / plain / library-call time (CUDA
    events, L2 flushed before each launch) and the least time the card
-   could take (bytes over 3.35 TB/s, operations over the peak for their
-   type: 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32).
+   could take (bytes over 3.35 TB/s, operations over the peak of the
+   route that takes them: 989 TFLOP/s bf16 on the tensor cores, 67
+   TFLOP/s f32 outside them, and for f32 flash on the tensor cores three
+   TF32 products an operation at 495 TFLOP/s; beside those rows also the
+   67-TFLOP/s bound of the SIMT kernels they replace).
    Serving (gpt_125m: B=8, L=1024, 12 heads of 64): mega decode (B4) with
    f32 / bf16 q and caches, at positions that include its chunk edges, and
    at GQA g = 2, 4, 8 and head sizes 36, 33 and 256 (rows that take 8-, 4-
@@ -36,20 +39,27 @@ failure:
    (NaN where NaN), the fused writes timed beside the launches they
    replace, index_put_ and the byte bound. Training
    (gpt_125m at batch 8 x seq 1024): flash attention forward and backward
-   (B1) at B=8, H=12, S=1024, D=64, bf16 on the tensor-core kernels and
-   f32 on the SIMT ones (each launch's path checked by its counters), both
-   held to the plain versions (f32 products), with SDPA's error against
-   the same printed beside each bf16 case; fused cross-entropy forward and
-   backward (B2) at N=8192, V=50304. Sequence parallelism (the ring
-   step of phase 14: B=8, H=12, 256-row shards, D=64): the blockwise flash
-   forward and backward (B5) on a diagonal, a past, a future (out 0, lse
-   -inf, zero grads) and a non-causal block, bf16 and f32 (paths and
-   limits as B1's; aten flash's error against the f32 products beside;
-   timed beside aten flash, bf16, and aten's memory-efficient attention,
-   f32), the backward against a given delta with a nonzero lse cotangent
-   folded in; then, untimed, the same kind of blocks (and one with the
-   causal edge across every tile) at 250-row shards and offsets off every
-   multiple of 64.
+   (B1) at B=8, H=12, S=1024, D=64, bf16 on the wgmma kernels and f32 on
+   the 3xTF32 mma.sync kernels, both on the tensor cores (each launch's
+   path checked by its counters), both held to the plain versions (f32
+   products), the f32 ones also to the plain formula in f64 on the same
+   inputs (the plain version's own error against it printed beside, so
+   that a failure tells the kernel's error from the reference's
+   rounding), with SDPA's error against the f32 plain version printed
+   beside each case without offsets (LIM_BF16 or LIM_F32 as the
+   yardstick); the f32 rows also timed on the SIMT kernels they replace,
+   through their C entries, in the same call; fused cross-entropy forward and backward (B2) at
+   N=8192, V=50304. Sequence parallelism (the ring step of phase 14: B=8,
+   H=12, 256-row shards, D=64): the blockwise flash forward and backward
+   (B5) on a diagonal, a past, a future (out 0, lse -inf, zero grads) and
+   a non-causal block, bf16 and f32 (paths, limits and the f32 rows' f64
+   reference as B1's; the error
+   of aten flash, bf16, or aten memory-efficient attention, f32, against
+   the f32 products beside; timed beside the same calls, and the f32 rows
+   beside the SIMT kernels), the backward against a given delta with a
+   nonzero lse cotangent folded in; then, untimed, the same kind of blocks
+   (and one with the causal edge across every tile) at 250-row shards and
+   offsets off every multiple of 64.
 4. serving, bf16 cache: gpt_125m with seeded random weights behind
    ContinuousBatchingEngine(slots=8, max_len=1024, tick_tokens=8) and
    PredictorServer; 8 concurrent POST /generate. The mega-decode launch
@@ -64,9 +74,14 @@ failure:
    profiled as phase 4. In phases 4-6 and 9-12 no plain version of a
    serving kernel and no per-plane write (fused_slot_write,
    fused_paged_write) may run.
-7. training parity, f32: gpt_125m with f32 weights on the card and a CPU
-   copy; one loss and backward at batch 2 x seq 128; loss and every
-   parameter's grad against the CPU's.
+7. training, f32: gpt_125m with f32 weights on the card and a CPU copy;
+   one loss and backward at batch 2 x seq 128; loss and every parameter's
+   grad against the CPU's, every B1 launch on the 3xTF32 kernels. Then
+   phase 8's step on the f32 model (AdamW without master weights, batch 8
+   x seq 1024, 1 warm step then 5): finite, decreasing losses, the first
+   within 0.5 of ln V; B1 launches 5 x 12 each way, all on the tensor-core
+   path; B2 1 + 1 a step; no plain version; one step profiled (device
+   busy share, the flash kernels' device time).
 8. training step, bf16: TrainStep(gpt_125m().bfloat16(), loss_fn,
    AdamW(lr=1e-4, multi_precision=True)) at batch 8 x seq 1024, 1 warm
    step then 5 on the same batch: finite, decreasing losses; the kernel
@@ -98,8 +113,8 @@ failure:
    S=1024, H=12, D=64, causal, f32 and bf16: outputs and q/k/v grads
    against the plain full attention; the dispatch takes the kernel path;
    B5 launches equal 16 forward and 16 backward for the ring, 4 and 4 for
-   Ulysses (one per position), bf16 on the tensor-core kernels and f32 on
-   the SIMT ones, B1 none. Timed, then the same untimed at
+   Ulysses (one per position), all on the tensor-core kernels (bf16
+   wgmma, f32 3xTF32), B1 none. Timed, then the same untimed at
    S=1000 (250-row shards); on a host with 4 or more cards, the S=1024
    run once more with one shard on each of cuda:0..3 (rotations and
    all-to-alls become peer copies), timed.
@@ -109,8 +124,8 @@ failure:
    no plain version runs; the
    losses are held to phase 8's (LOSS_RTOL_SP); one step profiled.
 15. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
-   tensor-core kernels of phases 8 and 14, and the f32 SIMT ones of
-   phases 7 and 13; B3 four times: kv_slot_write and kv_paged_write with
+   wgmma kernels of phases 8 and 14, and the f32 3xTF32 ones of phases 7
+   and 13, their launches from the tensor-core counts; B3 four times: kv_slot_write and kv_paged_write with
    their launches in phases 6 and 9, and the per-plane fused_slot_write
    and fused_paged_write, which no serving path launches: 0), the card
    line, and last the {"ok": true, "device": {...}} line.
@@ -137,6 +152,7 @@ L_SLICE, B_SLICE, NKV, HD = 1024, 8, 12, 64
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_OPS_PER_S = 67e12               # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12             # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12             # H100 SXM TF32 tensor cores, dense
 MAX_NEW = 32
 TICK = 8
 LAYERS = 12
@@ -932,12 +948,17 @@ def short_kernel_name(mangled):
 
 def tc_smem(lib, name):
     """The dynamic shared memory (bytes) a tensor-core flash kernel asks
-    for, from its short name; 0 for a kernel without templates."""
+    for, from its short name (``fwd_tc_kernel<64, 2>`` of the bf16
+    library, ``dq_tf32_kernel<64, false>`` of the f32 one); 0 for a kernel
+    without templates."""
     if "<" not in name:
         return 0
     pas = 0 if name.startswith("fwd") else 1 if name.startswith("dq") else 2
-    D, nc = (int(x) for x in name.split("<")[1].rstrip(">").split(", ")[:2])
-    return lib.flash_tc_smem_bytes(pas, D, nc)
+    args = [int(x) for x in name.split("<")[1].rstrip(">").split(", ")
+            if x.isdigit()]
+    if "_tf32_" in name:
+        return lib.flash_tf32_smem_bytes(pas, args[0])
+    return lib.flash_tc_smem_bytes(pas, args[0], args[1])
 
 
 def path_counts(*wrappers):
@@ -959,20 +980,97 @@ def expect_path(what, fa, dt, D, counts, n):
         fail(f"{what}: (tensor-core, SIMT) launches {counts} != {want}")
 
 
-def evidence(torch, what, pairs):
-    """Print worst error / LIM_BF16 of each (name, library's result, plain
-    version's): how far the library call sits from the f32 products that
-    the kernel is held to (not a check)."""
-    print(f"    {what} vs the plain version (worst / LIM_BF16): " + ", ".join(
-        f"{n} {close(torch, g, w, *LIM_BF16)[2]:.3g}" for n, g, w in pairs),
+def evidence(torch, what, pairs, f32=False):
+    """Print worst error / limit (LIM_BF16, or LIM_F32 for f32 inputs) of
+    each (name, library's result, plain version's): how far the library
+    call sits from the f32 products that the kernel is held to (not a
+    check)."""
+    lim, lim_name = (LIM_F32, "LIM_F32") if f32 else (LIM_BF16, "LIM_BF16")
+    print(f"    {what} vs the plain version (worst / {lim_name}): " + ", ".join(
+        f"{n} {close(torch, g, w, *lim)[2]:.3g}" for n, g, w in pairs),
         flush=True)
+
+
+def simt_entry(fa, name):
+    """A SIMT flash kernel's C entry (``csrc/flash_attention.cu``), which
+    the wrappers no longer launch for f32 at D 64: phase 3 times the
+    previous design beside the new one through it."""
+    return getattr(fa._build.load("flash_attention", fa._SIGNATURES),
+                   f"{name}_launch")
+
+
+def simt_flash_fwd(torch, fa, q, k, v, causal, scale, q_off=0, k_off=0):
+    """(out, lse) of B1's SIMT forward kernel on these inputs."""
+    from paddle_tpu_torch.kernels import ptr, stream_ptr
+    B, H, Sq, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    rc = simt_entry(fa, "flash_fwd")(
+        ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse),
+        *fa._geo(B * H, Sq, k.shape[2], D, causal, q_off, k_off, scale,
+                 q.dtype), stream_ptr(q.device))
+    fa.check_launch("simt flash_fwd", rc)
+    return out, lse
+
+
+def simt_flash_bwd(torch, fa, q, k, v, lse, do, causal, scale, q_off=0,
+                   k_off=0, out=None, delta=None):
+    """(dq, dk, dv) of the SIMT backward: B1's (``out`` given) or B5's
+    (``delta`` given)."""
+    from paddle_tpu_torch.kernels import ptr, stream_ptr
+    B, H, Sq, D = q.shape
+    geo = fa._geo(B * H, Sq, k.shape[2], D, causal, q_off, k_off, scale,
+                  q.dtype)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if delta is None:
+        scratch = torch.empty(q.shape[:3], dtype=torch.float32,
+                              device=q.device)
+        rc = simt_entry(fa, "flash_bwd")(
+            ptr(q), ptr(k), ptr(v), ptr(out), ptr(do), ptr(lse),
+            ptr(scratch), ptr(dq), ptr(dk), ptr(dv), *geo,
+            stream_ptr(q.device))
+    else:
+        rc = simt_entry(fa, "flash_block_bwd")(
+            ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
+            ptr(dk), ptr(dv), *geo, stream_ptr(q.device))
+    fa.check_launch("simt flash_bwd", rc)
+    return dq, dk, dv
+
+
+def flash_peak(torch, fa, dt, D):
+    """Operations a second at the peak of the route that B1/B5 take for
+    (dt, D): bf16 wgmma; f32 on the tensor cores as three TF32 products
+    an operation; f32 FMAs outside them (the SIMT kernels)."""
+    if dt == torch.bfloat16:
+        return BF16_OPS_PER_S
+    return TF32_OPS_PER_S / 3 if fa._tc_path(dt, D) else F32_OPS_PER_S
+
+
+def hold_to_f64(torch, what, got, plain, ref):
+    """Hold the f32 kernels' (out, lse, dq, dk, dv) ``got`` to ``ref``,
+    the plain formula in f64 on the same inputs (the backward at the same
+    f32 residuals), at the f32 limits; print first how far the f32 plain
+    version ``plain`` sits from it. Where the kernels pass here and fail
+    against the plain version, the f32 plain version's rounding is what
+    differs; where both fail, the kernels' own error."""
+    names = ("out", "lse", "dq", "dk", "dv")
+    lims = [LIM_LSE if n == "lse" else LIM_F32 for n in names]
+    print("    plain vs f64 (worst / limit): " + ", ".join(
+        f"{n} {close(torch, p, r, *lim)[2]:.3g}"
+        for n, p, r, lim in zip(names, plain, ref, lims)), flush=True)
+    check_all(torch, f"{what} vs f64", list(zip(names, got, ref, lims)))
 
 
 def check_flash(torch, fa, flush):
     """Phase 3, B1: kernel vs plain at the training slice's shapes; bf16
-    takes the tensor-core kernels (``LIM_BF16``), f32 the SIMT ones
-    (``LIM_F32``), both against the plain versions (f32 products). Beside
-    each bf16 case without offsets: SDPA's error against the same."""
+    (``LIM_BF16``) and f32 (``LIM_F32``) at D 64 take the tensor-core
+    kernels, both held to the plain versions (f32 products), the f32
+    ones first to the same formula in f64 (``hold_to_f64``). Beside each
+    case without offsets: SDPA's error against the f32 plain version (its
+    f32 path is the memory-efficient kernel, 3xTF32). Timed: each dtype's
+    kernels beside SDPA, the plain version and the bound of their route,
+    and for f32 the SIMT kernels at the same inputs through their C
+    entries (the design these replace) and their 67-TFLOP/s bound."""
     B, H, S, D = B_SLICE, NKV, L_SLICE, HD
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1000,6 +1098,16 @@ def check_flash(torch, fa, flush):
         expect_path(what, fa, dt, D,
                     path_counts(fa.flash_attn_fwd, fa.flash_attn_bwd), 2)
         lim = LIM_BF16 if dt == torch.bfloat16 else LIM_F32
+        if dt == torch.float32:
+            q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+            ref = fa.flash_attn_fwd_plain(
+                q64, k64, v64, causal, scale, q_off, k_off) + \
+                fa.flash_attn_bwd_plain(q64, k64, v64, out_p.double(),
+                                        lse_p.double(), do64, causal, scale,
+                                        q_off, k_off)
+            hold_to_f64(torch, what, (out, lse) + grads,
+                        (out_p, lse_p) + grads_p, ref)
+            del q64, k64, v64, do64, ref
         row = check_all(
             torch, what, (("out", out, out_p, lim),
                           ("lse", lse, lse_p, LIM_LSE),
@@ -1011,13 +1119,14 @@ def check_flash(torch, fa, flush):
                 and not grads[0][:, :, :k_off].any()):
             fail("flash: fully masked rows must give out 0, lse -inf, dq 0")
         errs[(dt, causal, k_off)] = row
-        if dt == torch.bfloat16 and q_off == k_off:   # SDPA has no offsets
+        if q_off == k_off:                   # SDPA has no offsets
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             o_l = sdpa(*leaves, is_causal=causal)
             g_l = torch.autograd.grad(o_l, leaves, do)
             evidence(torch, "SDPA", list(zip(("out", "dq", "dk", "dv"),
                                              (o_l,) + g_l,
-                                             (out_p,) + grads_p)))
+                                             (out_p,) + grads_p)),
+                     f32=dt == torch.float32)
 
     rows = {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1037,9 +1146,15 @@ def check_flash(torch, fa, flush):
         lib_fwd = timed(torch, lambda: sdpa(q, k, v, is_causal=True), flush)
         lib_both = timed(torch, lambda: torch.autograd.grad(
             sdpa(qr, kr, vr, is_causal=True), (qr, kr, vr), do), flush)
+        simt = {"fwd": None, "bwd": None}
+        if dt == torch.float32:
+            simt["fwd"] = timed(torch, lambda: simt_flash_fwd(
+                torch, fa, q, k, v, True, scale), flush)
+            simt["bwd"] = timed(torch, lambda: simt_flash_bwd(
+                torch, fa, q, k, v, lse, do, True, scale, out=out), flush)
         fb, fo, bb, bo = b1_cost(B, H, S, S, D, True, 0, 0,
                                  q.element_size())
-        peak = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
+        peak = flash_peak(torch, fa, dt, D)
         label = "bf16" if dt == torch.bfloat16 else "f32"
         for kind, ms, plain_ms, lib_ms, nb, ops in (
                 ("fwd", fwd_ms, pfwd_ms, lib_fwd, fb, fo),
@@ -1048,9 +1163,13 @@ def check_flash(torch, fa, flush):
             rows[(label, kind)] = dict(ms=ms, plain_ms=plain_ms,
                                        library_ms=lib_ms, bound_ms=bound_ms,
                                        bound_by=by)
+            extra = "" if simt[kind] is None else (
+                f", SIMT kernel {simt[kind]:.4f} ms (its bound "
+                f"{bound(nb, ops)[0]:.4f} ms)")
             print(f"  flash_attn_{kind} {label} causal: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)", flush=True)
+                  f"{bound_ms:.4f} ms ({by}: {nb} B, {ops} ops){extra}",
+                  flush=True)
     return errs, rows
 
 
@@ -1085,9 +1204,11 @@ def b5_vs_plain(torch, fb, gen, dt, lim, B, H, sl, D, case, causal, q_off,
     """One B5 case, forward and backward (against the plain forward's
     lse and a delta with a random lse cotangent folded in) vs the plain
     versions, each launch on the path ``_tc_path`` gives; a future block
-    must give out 0, lse -inf and zero grads. Beside a bf16 block that is
-    plain causal or full: aten flash's forward error against the same plain
-    version. Returns (max errors, forward args, backward args)."""
+    must give out 0, lse -inf and zero grads; f32 kernels are held first
+    to the same formula in f64 (``hold_to_f64``). Beside a block that is
+    plain causal or full: the forward error of aten flash (bf16) or aten
+    memory-efficient attention (f32) against the same plain version.
+    Returns (max errors, forward args, backward args)."""
     label = "bf16" if dt == torch.bfloat16 else "f32"
     dev = torch.device("cuda")
     q, k, v, do = (torch.randn(B, H, sl, D, device=dev,
@@ -1106,6 +1227,14 @@ def b5_vs_plain(torch, fb, gen, dt, lim, B, H, sl, D, case, causal, q_off,
             f"{k_off} causal={causal}")
     expect_path(what, fb._fa, dt, D,
                 path_counts(fb.flash_block_fwd, fb.flash_block_bwd), 2)
+    if dt == torch.float32:
+        q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+        ref = fb.flash_block_fwd_plain(q64, k64, v64, q_off, k_off, causal,
+                                       scale) + fb.flash_block_bwd_plain(
+            q64, k64, v64, q_off, k_off, lse_p.double(), do64,
+            delta.double(), causal, scale)
+        hold_to_f64(torch, what, (out, lse) + grads,
+                    (out_p, lse_p) + grads_p, ref)
     errs = check_all(
         torch, what,
         (("out", out, out_p, lim), ("lse", lse, lse_p, LIM_LSE),
@@ -1121,18 +1250,27 @@ def b5_vs_plain(torch, fb, gen, dt, lim, B, H, sl, D, case, causal, q_off,
         lib = torch.ops.aten._scaled_dot_product_flash_attention(
             q, k, v, 0.0, case == "diagonal", False, scale=scale)
         evidence(torch, "aten flash", [("out", lib[0], out_p)])
+    elif case in ("diagonal", "past", "non-causal"):
+        lib = torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, None, True, 0.0, case == "diagonal", scale=scale)
+        # its lse is padded to a multiple of 32 rows
+        evidence(torch, "aten mem-efficient", [
+            ("out", lib[0], out_p), ("lse", lib[1][..., :sl], lse_p)],
+            f32=True)
     return errs, fwd_args, bwd_args
 
 
 def check_flash_block(torch, fb, flush):
     """Phase 3, B5: forward and backward vs plain at the sp step's ring
     shape, the backward against a given delta with a nonzero lse cotangent
-    folded in, timed; then, untimed, the same at 250-row shards.
-    Yardsticks, both returning the logsumexp: aten's flash attention for
-    bf16, its memory-efficient attention for f32 (the flash backend takes
-    no f32; its backward through autograd on a kept graph); causal on the
-    diagonal block, full on the past and non-causal ones (every key
-    visible)."""
+    folded in, timed; then, untimed, the same at 250-row shards. bf16 and
+    f32 both on the tensor-core kernels at D 64, each row's bound at its
+    route's peak; the f32 rows are also timed on the SIMT kernels (the
+    design they replace) beside their 67-TFLOP/s bound. Yardsticks, both returning the logsumexp: aten's flash
+    attention for bf16, its memory-efficient attention (3xTF32) for f32
+    (the flash backend takes no f32; its backward through autograd on a
+    kept graph); causal on the diagonal block, full on the past and
+    non-causal ones (every key visible)."""
     B, H, sl, D = B_SLICE, NKV, L_SLICE // SP, HD
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -1177,9 +1315,17 @@ def check_flash_block(torch, fb, flush):
                         qg, kg, vg, is_causal=lc, scale=scale)
                 lib_bwd = timed(torch, lambda: torch.autograd.grad(
                     og, (qg, kg, vg), do, retain_graph=True), flush)
+            simt = {"fwd": None, "bwd": None}
+            if dt == torch.float32:
+                simt["fwd"] = timed(torch, lambda: simt_flash_fwd(
+                    torch, fb._fa, q, k, v, causal, scale, q_off, k_off),
+                    flush)
+                simt["bwd"] = timed(torch, lambda: simt_flash_bwd(
+                    torch, fb._fa, q, k, v, bwd_args[5], do, causal, scale,
+                    q_off, k_off, delta=bwd_args[7]), flush)
             fb_, fo, bb, bo = b5_cost(B, H, sl, sl, D, causal, q_off, k_off,
                                       q.element_size())
-            peak = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
+            peak = flash_peak(torch, fb._fa, dt, D)
             for kind, t, plain_ms, lib_ms, nb, ops in (
                     ("fwd", ms, pfwd_ms, lib_fwd, fb_, fo),
                     ("bwd", bwd_ms, pbwd_ms, lib_bwd, bb, bo)):
@@ -1189,10 +1335,13 @@ def check_flash_block(torch, fb, flush):
                     bound_ms=bound_ms, bound_by=by)
                 lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
                 lib_name = "aten flash" if label == "bf16" else "aten eff"
+                extra = "" if simt[kind] is None else (
+                    f", SIMT kernel {simt[kind]:.4f} ms (its bound "
+                    f"{bound(nb, ops)[0]:.4f} ms)")
                 print(f"  flash_block_{kind} {label} {case}: kernel {t:.4f} "
                       f"ms, plain {plain_ms:.4f} ms, {lib_name} {lib_txt}, "
-                      f"bound {bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)",
-                      flush=True)
+                      f"bound {bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)"
+                      f"{extra}", flush=True)
     for dt, lim in ((torch.bfloat16, LIM_BF16), (torch.float32, LIM_F32)):
         for case, causal, q_off, k_off in B5_ODD_CASES:
             b5_vs_plain(torch, fb, gen, dt, lim, B, H, B5_ODD_SL, D, case,
@@ -1273,8 +1422,9 @@ def check_ce(torch, ce, flush):
 
 
 def train_parity(torch, pkg):
-    """Phase 7: one f32 loss + backward of gpt_125m on the card against a
-    CPU copy of the same weights, batch 2 x seq 128."""
+    """Phase 7, first part: one f32 loss + backward of gpt_125m on the
+    card against a CPU copy of the same weights, batch 2 x seq 128; every
+    B1 launch on the 3xTF32 tensor-core kernels."""
     GPT, cfg = pkg["GPT"], pkg["gpt_125m"]
     model = GPT(cfg(), seed=2).train()
     cpu = GPT(cfg(), device="cpu", seed=3).train()
@@ -1293,9 +1443,10 @@ def train_parity(torch, pkg):
         grads.append({n: p.grad for n, p in m.named_parameters()})
     counts = {w.__name__: (w.tc_launches, w.simt_launches)
               for w in (fa.flash_attn_fwd, fa.flash_attn_bwd)}
-    if counts != {n: (0, LAYERS) for n in counts}:
+    if counts != {n: (LAYERS, 0) for n in counts}:
         fail(f"f32 parity: B1 (tensor-core, SIMT) launches {counts} != "
-             f"(0, {LAYERS}) each: f32 must run the SIMT kernels")
+             f"({LAYERS}, 0) each: f32 at D 64 must run the 3xTF32 "
+             "tensor-core kernels")
     rel = abs(losses[0] - losses[1]) / abs(losses[1])
     if not rel <= 1e-5:
         fail(f"f32 parity: loss card {losses[0]} cpu {losses[1]} (rel {rel} "
@@ -1372,16 +1523,22 @@ def profile_window(torch, what, fn, top=10):
     return rows, wall_us
 
 
-def train_step(torch, pkg, steps=5, sp=1):
-    """Phase 8 (sp = 1) and phase 14 (the same step under an sp-way mesh
-    on the one card): the slice's step, bench.py's geometry. Returns the
-    kernel launch counts of the timed steps, the losses (warm step first)
-    and the ms per timed step."""
+def train_step(torch, pkg, steps=5, sp=1, f32=False):
+    """Phase 8 (sp = 1, bf16), phase 14 (the same step under an sp-way
+    mesh on the one card) and phase 7's f32 step (``f32``: the same model
+    with f32 weights, AdamW without master weights): the slice's step,
+    bench.py's geometry. Returns the kernel launch counts of the timed
+    steps, the losses (warm step first), the ms per timed step and the
+    attention wrappers' (tensor-core, SIMT) launch counts."""
     fa, ce, fb, dist = pkg["fa"], pkg["ce"], pkg["fb"], pkg["dist"]
-    model = pkg["GPT"](pkg["gpt_125m"](), seed=0).bfloat16()
+    torch.cuda.reset_peak_memory_stats()
+    model = pkg["GPT"](pkg["gpt_125m"](), seed=0)
+    if not f32:
+        model = model.bfloat16()
     opt = pkg["AdamW"](learning_rate=1e-4, parameters=model.parameters(),
-                       multi_precision=True)
+                       multi_precision=not f32)
     step = pkg["TrainStep"](model, model.make_loss_fn(), opt)
+    label = "f32" if f32 else "bf16"
     rs = pkg["np"].random.RandomState(0)
     ids = torch.from_numpy(rs.randint(0, model.cfg.vocab_size,
                                       (B_SLICE, L_SLICE)).astype("int64"))
@@ -1418,11 +1575,11 @@ def train_step(torch, pkg, steps=5, sp=1):
         paths = {w.__name__: (w.tc_launches, w.simt_launches) for w in attn}
         if counts != want or any(plain.values()) or paths != {
                 w.__name__: (want[w.__name__], 0) for w in attn}:
-            fail(f"train step (sp={sp}) launches {counts} != {want} (= "
-                 f"{steps} steps x {LAYERS} layers x 1, or x sp^2 = "
-                 f"{sp * sp} ring blocks / x 1), plain calls {plain}, "
-                 f"(tensor-core, SIMT) {paths}: every bf16 launch must take "
-                 "the tensor-core kernels")
+            fail(f"train step (sp={sp}, {label}) launches {counts} != "
+                 f"{want} (= {steps} steps x {LAYERS} layers x 1, or x "
+                 f"sp^2 = {sp * sp} ring blocks / x 1), plain calls "
+                 f"{plain}, (tensor-core, SIMT) {paths}: every launch must "
+                 "take the tensor-core kernels")
         if sp > 1 and dist.last_ring_dispatch()["path"] != "kernel":
             fail(f"sp step dispatch {dist.last_ring_dispatch()}")
         ln_v = math.log(model.cfg.vocab_size)
@@ -1434,16 +1591,23 @@ def train_step(torch, pkg, steps=5, sp=1):
         if not vals[-1] < min(vals[0], vals[1]):
             fail(f"train step: the last loss is not below the first: {vals}")
         ms = wall / steps * 1e3
-        profile_window(torch, f"step (sp={sp})", lambda: step(ids, ids))
+        prof, prof_wall = profile_window(
+            torch, f"step (sp={sp}, {label})", lambda: step(ids, ids))
     finally:
         if sp > 1:
             dist.set_mesh(None)
+    attn_us = sum(us for us, _, key in prof
+                  if "tf32_kernel" in key or "tc_kernel" in key)
+    attn = ("not measured" if not prof else
+            f"{attn_us / 1e3:.3f} ms device time in the flash kernels "
+            f"({100 * attn_us / prof_wall:.1f} % of the profiled step's wall)")
     print(f"  losses {['%.4f' % x for x in vals]} (warm step first); "
           f"{ms:.1f} ms/step, {B_SLICE * L_SLICE / (ms / 1e3):.0f} tokens/s "
           f"(smoke number, {steps} steps); launches {counts}, (tensor-core, "
-          f"SIMT) {paths}, plain calls {plain}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
-    return counts, vals, ms
+          f"SIMT) {paths}, plain calls {plain}; profiled step: {attn}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
+          flush=True)
+    return counts, vals, ms, paths
 
 
 def check_sp_attention(torch, pkg, S, devices, timing):
@@ -1830,11 +1994,13 @@ def main():
     print(f"  built {len(per)} libraries in {time.perf_counter() - t0:.2f} "
           "s (" + ", ".join(f"{n} {t:.2f} s" for n, t in per.items()) +
           f"; nvcc {_build.NVCC_FLAGS})", flush=True)
-    lib = _build.load("flash_attention_sm90", fa._TC_SIGNATURES)
-    for kernel, regs, spills in _build.ptxas_report("flash_attention_sm90"):
-        name = short_kernel_name(kernel)
-        print(f"  ptxas {name}: {regs}; {spills}; dynamic smem "
-              f"{tc_smem(lib, name)} B", flush=True)
+    for src, sigs in (("flash_attention_sm90", fa._TC_SIGNATURES),
+                      ("flash_attention_sm90_f32", fa._TF32_SIGNATURES)):
+        lib = _build.load(src, sigs)
+        for kernel, regs, spills in _build.ptxas_report(src):
+            name = short_kernel_name(kernel)
+            print(f"  ptxas {name}: {regs}; {spills}; dynamic smem "
+                  f"{tc_smem(lib, name)} B", flush=True)
     b4_ptxas = {}
     for kernel, regs, spills in _build.ptxas_report("mega_decode"):
         cache = "bf16" if "bfloat16" in kernel else "f32"
@@ -1918,12 +2084,16 @@ def main():
 
     print("phase 7: training parity, f32 gpt_125m on the card vs the CPU",
           flush=True)
-    parity_counts = train_parity(torch, pkg)
+    train_parity(torch, pkg)
+    torch.cuda.empty_cache()
+    print("  then the f32 training step: f32 gpt_125m, AdamW, batch "
+          f"{B_SLICE} x seq {L_SLICE}", flush=True)
+    _, _, _, f32_paths = train_step(torch, pkg, f32=True)
     torch.cuda.empty_cache()
 
     print("phase 8: training step, bf16 gpt_125m, AdamW multi_precision, "
           f"batch {B_SLICE} x seq {L_SLICE}", flush=True)
-    train_counts, losses8, ms8 = train_step(torch, pkg)
+    train_counts, losses8, ms8, _ = train_step(torch, pkg)
     torch.cuda.empty_cache()
 
     model = GPTForCausalLM(gpt_125m(), seed=0)        # phase 4's weights
@@ -2002,7 +2172,7 @@ def main():
 
     print(f"phase 14: training step under sp={SP} (ring attention on B5), "
           f"bf16 gpt_125m, batch {B_SLICE} x seq {L_SLICE}", flush=True)
-    sp_counts, losses14, ms14 = train_step(torch, pkg, sp=SP)
+    sp_counts, losses14, ms14, _ = train_step(torch, pkg, sp=SP)
     rel = [abs(a - b) / abs(b) for a, b in zip(losses14, losses8)]
     if not max(rel) <= LOSS_RTOL_SP:
         fail(f"sp losses {losses14} vs phase 8's {losses8}: max rel "
@@ -2047,7 +2217,8 @@ def main():
     b2_main = b2_errs[(8192, torch.bfloat16, None)]
     b1_src = "paddle_tpu/nn/functional/flash_attention.py:134"
     # (name, source, replaces, max error, timing row, launches): bf16 B1 on
-    # the tensor cores (phase 8), f32 B1 on the SIMT kernels (phase 7)
+    # the wgmma kernels (phase 8), f32 B1 on the 3xTF32 kernels (phase 7's
+    # f32 step, their tensor-core launches)
     for name, src, replaces, err, row, n in (
             ("flash_attn_fwd", "flash_attention_sm90.cu", b1_src,
              max(b1_main["out"], b1_main["lse"]), b1_rows[("bf16", "fwd")],
@@ -2055,12 +2226,12 @@ def main():
             ("flash_attn_bwd", "flash_attention_sm90.cu", b1_src,
              max(b1_main["dq"], b1_main["dk"], b1_main["dv"]),
              b1_rows[("bf16", "bwd")], train_counts["flash_attn_bwd"]),
-            ("flash_attn_fwd_f32", "flash_attention.cu", b1_src,
+            ("flash_attn_fwd_f32", "flash_attention_sm90_f32.cu", b1_src,
              max(b1_f32["out"], b1_f32["lse"]), b1_rows[("f32", "fwd")],
-             parity_counts["flash_attn_fwd"][1]),
-            ("flash_attn_bwd_f32", "flash_attention.cu", b1_src,
+             f32_paths["flash_attn_fwd"][0]),
+            ("flash_attn_bwd_f32", "flash_attention_sm90_f32.cu", b1_src,
              max(b1_f32["dq"], b1_f32["dk"], b1_f32["dv"]),
-             b1_rows[("f32", "bwd")], parity_counts["flash_attn_bwd"][1]),
+             b1_rows[("f32", "bwd")], f32_paths["flash_attn_bwd"][0]),
             ("ce_fwd", "fused_ce.cu", "paddle_tpu/kernels/fused_ce.py:172",
              max(b2_main["per"], b2_main["lse"]), b2_rows[("bf16", "fwd")],
              train_counts["ce_fwd"]),
@@ -2074,8 +2245,9 @@ def main():
             "max_abs_err": err, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
-    # B5: bf16 on the tensor cores (phase 14's sp step), f32 on the SIMT
-    # kernels (phase 13's f32 ring and Ulysses calls on one card)
+    # B5: bf16 on the wgmma kernels (phase 14's sp step), f32 on the 3xTF32
+    # kernels (phase 13's f32 ring and Ulysses calls on one card, their
+    # tensor-core launches)
     for name, kind, replaces in (
             ("flash_block_attention", "fwd",
              "paddle_tpu/kernels/flash_block.py:348"),
@@ -2084,8 +2256,8 @@ def main():
         for label, src, n in (
                 ("bf16", "flash_attention_sm90.cu",
                  sp_counts[f"flash_block_{kind}"]),
-                ("f32", "flash_attention.cu",
-                 sum(sp_paths[(torch.float32, op)][f"flash_block_{kind}"][1]
+                ("f32", "flash_attention_sm90_f32.cu",
+                 sum(sp_paths[(torch.float32, op)][f"flash_block_{kind}"][0]
                      for op in ("ring", "ulysses")))):
             row = b5_rows[(label, "past", kind)]
             err = b5_errs[(label, "past")]

@@ -27,7 +27,7 @@ from pathlib import Path
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "load", "ptxas_report"]
 
 SOURCES = ("mega_decode", "cache_write", "flash_attention",
-           "flash_attention_sm90", "fused_ce")
+           "flash_attention_sm90", "flash_attention_sm90_f32", "fused_ce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

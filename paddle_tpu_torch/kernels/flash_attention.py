@@ -4,22 +4,27 @@ log-sum-exp, with runtime query/key offsets for causal masking.
 Port of the TPU kernel behind paddle_tpu/nn/functional/flash_attention.py:
 ``_pallas_flash`` (the library Pallas flash-attention kernel and its
 backward); the math is the one paddle_tpu writes out in
-kernels/flash_block.py (``_fwd``, ``_bwd``, ``compute_delta``). Two CUDA
-paths, chosen by ``_tc_path`` from the dtype and D alone:
+kernels/flash_block.py (``_fwd``, ``_bwd``, ``compute_delta``). Three CUDA
+sources, chosen by ``_tc_path`` from the dtype and D alone:
 
 =================  =================================================
 inputs             kernels
 =================  =================================================
 bf16, D 64 or 128  ``csrc/flash_attention_sm90.cu``: wgmma on the
                    tensor cores, TMA-fed K/V rings (``*_tc_launch``)
-f32; bf16 at       ``csrc/flash_attention.cu``: f32 FMAs on the CUDA
-another D          cores, a 64-row tile per block (``*_launch``)
+f32, D 64          ``csrc/flash_attention_sm90_f32.cu``: 3xTF32
+                   mma.sync on the tensor cores, cp.async-fed rings
+                   (``*_tf32_launch``)
+f32 at another D;  ``csrc/flash_attention.cu``: f32 FMAs on the CUDA
+bf16 at another D  cores, a 64-row tile per block (``*_launch``)
 =================  =================================================
 
-Launches per wrapper call (each call counts once in ``.launches`` and once
-in its path's ``.tc_launches`` or ``.simt_launches``): ``flash_attn_fwd``
-issues one device launch; ``flash_attn_bwd`` issues two, the dQ pass
-(which also computes ``delta = rowsum(dO * O)``) and then the dK/dV pass.
+The first two are the tensor-core path (``_tc_path`` True), the last the
+SIMT path. Launches per wrapper call (each call counts once in
+``.launches`` and once in its path's ``.tc_launches`` or
+``.simt_launches``): ``flash_attn_fwd`` issues one device launch;
+``flash_attn_bwd`` issues two, the dQ pass (which also computes ``delta =
+rowsum(dO * O)``) and then the dK/dV pass.
 
 Contract, as flash_block's: f32 accumulation; a row whose every key is
 masked returns ``out = 0``, ``lse = -inf`` and zero gradients. ``q_off``
@@ -27,15 +32,19 @@ and ``k_off`` are the global positions of ``q[0]`` and ``k[0]``; causal
 keeps ``q_off + i >= k_off + j`` (top-left aligned at 0/0). The LSE is
 ``[B, H, Sq]`` f32 (not the TPU's lane-broadcast ``[.., 128]`` form).
 
-Precision: both paths take every product as an f32 product of the inputs,
-as paddle_tpu's B5 kernels do (kernels/flash_block.py's ``_fwd_kernel`` and
-``_bwd`` widen q, k and v to f32); the tensor-core kernels carry P and dS
-into their bf16 products as bf16 parts: P in the forward as three (within
-2^-24, as f32: out feeds the backward's ``delta``), P and dS in the
-backward as two (within 2^-16).
-``_pallas_flash`` rounds P and dS to bf16 there instead; the kernels
-compute its function at least as precisely. So one plain version, f32
-products with the result cast to the inputs' dtype, holds both paths.
+Precision: paddle_tpu's B5 kernels take every product as an f32 product
+of the inputs (kernels/flash_block.py's ``_fwd_kernel`` and ``_bwd`` widen
+q, k and v to f32). The SIMT kernels do the same. The bf16 tensor-core
+kernels carry P and dS into their bf16 products as bf16 parts: P in the
+forward as three (within 2^-24, as f32: out feeds the backward's
+``delta``), P and dS in the backward as two (within 2^-16). The f32
+tensor-core kernels take every product of f32 inputs as a 3xTF32 product
+(each operand split into a TF32 big and small part, big.big + big.small +
+small.big), within ~2^-21 of the f32 product, as PyTorch's f32
+memory-efficient attention does. ``_pallas_flash`` rounds P and dS to bf16
+instead; every path computes its function at least as precisely. So one
+plain version, f32 products with the result cast to the inputs' dtype,
+holds all three.
 """
 from __future__ import annotations
 
@@ -51,7 +60,7 @@ __all__ = ["flash_attn_fwd", "flash_attn_bwd", "flash_attn_fwd_plain",
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 128
-_TC_HEAD_DIMS = (64, 128)
+_TC_HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (64,)}
 _NEG_INF = float("-inf")
 _GEO = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 # one table per library: kernels/flash_block.py (B5) loads them too, and a
@@ -66,31 +75,42 @@ _TC_SIGNATURES = {
     "flash_block_bwd_tc_launch": (ctypes.c_int,
                                   [ctypes.c_void_p] * 9 + _GEO),
     "flash_tc_smem_bytes": (ctypes.c_int, [ctypes.c_int] * 3)}
+_TF32_SIGNATURES = {
+    "flash_fwd_tf32_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + _GEO),
+    "flash_bwd_tf32_launch": (ctypes.c_int, [ctypes.c_void_p] * 10 + _GEO),
+    "flash_block_bwd_tf32_launch": (ctypes.c_int,
+                                    [ctypes.c_void_p] * 9 + _GEO),
+    "flash_tf32_smem_bytes": (ctypes.c_int, [ctypes.c_int] * 2)}
 
 
 def _tc_path(dtype, D) -> bool:
-    """True where the tensor-core kernels run (bf16, D 64 or 128), False
-    where the SIMT ones do (f32, or bf16 at another D). Decided from dtype
+    """True where the tensor-core kernels run (bf16 at D 64 or 128, f32 at
+    D 64), False where the SIMT ones do (every other D). Decided from dtype
     and D alone, never from a failure: a refused launch raises."""
-    return dtype == torch.bfloat16 and int(D) in _TC_HEAD_DIMS
+    return int(D) in _TC_HEAD_DIMS.get(dtype, ())
 
 
-def _entry(tc, name):
-    """The C entry ``name`` (``<name>_tc_launch`` on the tensor-core path,
-    ``<name>_launch`` on the SIMT one) of its library, built at first use."""
-    if tc:
+def _entry(tc, dtype, name):
+    """The C entry ``name`` of the path's library, built at first use:
+    ``<name>_tc_launch`` (bf16) or ``<name>_tf32_launch`` (f32) on the
+    tensor-core path, ``<name>_launch`` on the SIMT one."""
+    if not tc:
+        return getattr(_build.load("flash_attention", _SIGNATURES),
+                       f"{name}_launch")
+    if dtype == torch.bfloat16:
         return getattr(_build.load("flash_attention_sm90", _TC_SIGNATURES),
                        f"{name}_tc_launch")
-    return getattr(_build.load("flash_attention", _SIGNATURES),
-                   f"{name}_launch")
+    return getattr(_build.load("flash_attention_sm90_f32", _TF32_SIGNATURES),
+                   f"{name}_tf32_launch")
 
 
 def _require_tma_aligned(op, **tensors):
-    """The tensor-core path reads these by TMA: 16-byte aligned bases."""
+    """The tensor-core path reads these in 16-byte copies (TMA for bf16,
+    cp.async and 16-byte loads for f32): 16-byte aligned bases."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{op}: {name} must be 16-byte aligned on the "
-                             "tensor-core path (TMA)")
+                             "tensor-core path (16-byte copies)")
 
 
 def _count(wrapper, tc):
@@ -208,7 +228,7 @@ def _launch_fwd(op, q, k, v, causal, sm_scale, q_off, k_off, dev):
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = _entry(tc, "flash_fwd")(
+        rc = _entry(tc, q.dtype, "flash_fwd")(
             ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse),
             *_geo(BH, Sq, Sk, D, causal, q_off, k_off, sm_scale, q.dtype),
             stream_ptr(dev))
@@ -240,11 +260,12 @@ def flash_attn_bwd(q, k, v, out, lse, do, causal, sm_scale, q_off=0,
                        do=do)
     tc = _tc_path(q.dtype, D)
     if tc:
-        _require_tma_aligned("flash_attn_bwd", q=q, k=k, v=v, do=do)
+        _require_tma_aligned("flash_attn_bwd", q=q, k=k, v=v, out=out,
+                             do=do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = _entry(tc, "flash_bwd")(
+        rc = _entry(tc, q.dtype, "flash_bwd")(
             ptr(q), ptr(k), ptr(v), ptr(out), ptr(do), ptr(lse), ptr(delta),
             ptr(dq), ptr(dk), ptr(dv),
             *_geo(BH, Sq, Sk, D, causal, q_off, k_off, sm_scale, q.dtype),

@@ -8,18 +8,21 @@ Port of paddle_tpu/kernels/flash_block.py (``flash_block_attention``
 ``:401``, whose Pallas kernels are ``_fwd`` ``:114`` and ``_bwd`` ``:244``).
 On the TPU these are kernels of their own because the library flash kernel
 hides the LSE. On the card B1's kernels already return it and take runtime
-offsets, so B5 runs B1's device code, on B1's two paths (``_tc_path``:
-bf16 with D 64 or 128 on the tensor cores, ``csrc/flash_attention_sm90.cu``;
-f32 and other D on the SIMT kernels, ``csrc/flash_attention.cu``):
+offsets, so B5 runs B1's device code, on B1's paths (``_tc_path``: on
+the tensor cores bf16 with D 64 or 128, ``csrc/flash_attention_sm90.cu``,
+and f32 with D 64 as 3xTF32, ``csrc/flash_attention_sm90_f32.cu``; every
+other D on the SIMT kernels, ``csrc/flash_attention.cu``):
 
-- the forward is B1's forward entry (``flash_fwd_tc_launch`` /
-  ``flash_fwd_launch``); a block wholly in the causal future loads nothing
-  and gives ``out = 0``, ``lse = -inf`` (the merge identity);
-- the backward is ``flash_block_bwd_tc_launch`` / ``flash_block_bwd_launch``:
-  B1's two passes (dQ, then dK/dV) against a ``delta`` the caller gives,
-  which the dQ pass reads instead of computing ``rowsum(dO * O)`` and
-  writing it (on the tensor-core path a block no query sees takes one
-  launch that writes zero grads). A ring hoists one ``delta`` per layer
+- the forward is B1's forward entry (``flash_fwd_tc_launch``,
+  ``flash_fwd_tf32_launch`` or ``flash_fwd_launch``); a block wholly in the
+  causal future loads nothing and gives ``out = 0``, ``lse = -inf`` (the
+  merge identity);
+- the backward is ``flash_block_bwd_tc_launch``,
+  ``flash_block_bwd_tf32_launch`` or ``flash_block_bwd_launch``: B1's two
+  passes (dQ, then dK/dV) against a ``delta`` the caller gives, which the
+  dQ pass reads instead of computing ``rowsum(dO * O)`` and writing it (on
+  the tensor-core path a block no query sees takes one launch that writes
+  zero grads). A ring hoists one ``delta`` per layer
   out of its sp block steps; one block's own backward folds its lse
   cotangent into it (``compute_delta``). The plain versions are B1's
   (f32 products, as paddle_tpu's ``_fwd_kernel`` and ``_bwd`` take
@@ -108,7 +111,7 @@ def flash_block_bwd(q, k, v, q_off, k_off, lse, do, delta, causal,
         _fa._require_tma_aligned("flash_block_bwd", q=q, k=k, v=v, do=do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(dev):
-        rc = _fa._entry(tc, "flash_block_bwd")(
+        rc = _fa._entry(tc, q.dtype, "flash_block_bwd")(
             ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
             ptr(dk), ptr(dv),
             *_fa._geo(BH, Sq, Sk, D, causal, q_off, k_off, sm_scale,

@@ -328,11 +328,12 @@ def test_bf16_plain_matches_pallas_interpret(S, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 64, 96, 128])
 def test_tc_path_rule(dtype, D):
-    """The wrappers' path table: bf16 at D 64 or 128 on the tensor-core
-    kernels, everything else on the SIMT ones; on CPU tensors neither
-    counts a launch."""
-    assert tfa._tc_path(dtype, D) == (dtype == torch.bfloat16
-                                      and D in (64, 128))
+    """The wrappers' path table: bf16 at D 64 or 128 (wgmma) and f32 at D
+    64 (3xTF32) on the tensor-core kernels, everything else on the SIMT
+    ones; on CPU tensors neither counts a launch."""
+    assert tfa._tc_path(dtype, D) == (
+        (dtype == torch.bfloat16 and D in (64, 128))
+        or (dtype == torch.float32 and D == 64))
     q, k, v, do = (t.to(dtype) for t in _t(*_qkv(B=1, H=1, Sq=16, D=D)))
     for w in (tfa.flash_attn_fwd, tfa.flash_attn_bwd):
         w.launches = w.tc_launches = w.simt_launches = 0
