@@ -21,8 +21,10 @@ failure:
    67-TFLOP/s bound of the SIMT kernels they replace).
    Serving (gpt_125m: B=8, L=1024, 12 heads of 64): mega decode (B4) with
    f32 / bf16 q and caches, at positions that include its chunk edges, and
-   at GQA g = 2, 4, 8 and head sizes 36, 33 and 256 (rows that take 8-, 4-
-   and 2-byte loads), timed with a bf16 and an f32 cache, serving-like and
+   at GQA g = 2, 4, 8, at g = 3, 5, 16 and MQA (40 and 64 query heads on
+   one kv head: sub-groups of at most 8 heads a block), and head sizes
+   36, 33 and 256 (rows that take 8-, 4- and 2-byte loads), timed with a
+   bf16 and an f32 cache, serving-like and
    full, beside SDPA and three floors (a one-element fill; B4 at pos =
    -1, which reads nothing; torch.sum over the full cache's bytes);
    int8 quantisation (quant_rows) on the card against the CPU, bit for
@@ -60,6 +62,15 @@ failure:
    nonzero lse cotangent folded in; then, untimed, the same kind of blocks
    (and one with the causal edge across every tile) at 250-row shards and
    offsets off every multiple of 64.
+   LLaMA-13B's shapes (phases 15-18): B4 at B=8, L=2048, 40 heads of 128,
+   bf16 q and cache, against its plain version and timed serving-like and
+   full; kv_paged_write into [1024, 16, 40, 128] bf16 pools from bf16
+   rows, bit-exact, timed at decode and admission; B1 bf16 at B=4, H=40,
+   S=2048, D=128, causal (the wgmma D-128 kernels), and B2 at N=8192,
+   V=32000, bf16, each held and timed as above; and the sampling filter
+   and draw (``generation._select_token``) on the card against the CPU on
+   64 rows of logits at V=32000, each knob alone and all together: the
+   same tokens except where the CPU's perturbed top-2 margin is < 1e-4.
 4. serving, bf16 cache: gpt_125m with seeded random weights behind
    ContinuousBatchingEngine(slots=8, max_len=1024, tick_tokens=8) and
    PredictorServer; 8 concurrent POST /generate. The mega-decode launch
@@ -123,11 +134,39 @@ failure:
    per step each way, all on the tensor-core kernels, B1 none, B2 1 + 1;
    no plain version runs; the
    losses are held to phase 8's (LOSS_RTOL_SP); one step profiled.
-15. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
+15. serving LLaMA-13B: LlamaForCausalLM(llama_13b(), seed=0).bfloat16()
+   (40 layers at full width, 13.02 B parameters, drawn on the card) behind
+   the engine (slots=8, max_len=2048, tick_tokens=8) and the server; 8
+   concurrent POST /generate of 16-300-token prompts, 32 new tokens each;
+   mega-decode launches must equal ticks x 8 x 40; profiled as phase 4.
+16. paged LLaMA-13B serving with sampling: bf16 pool of 1024 pages,
+   prefix cache, do_sample with temperature 0.8, top-k 50, top-p 0.95;
+   8 requests sharing a 256-token prefix, each with its own seed: prefix
+   hits 7, kv_paged_write launches (admissions + ticks x 8) x 40, B4 none;
+   profiled; then one 12-token prompt with one seed alone and again beside
+   a request in slot 0 (another slot, other ticks) must give the same
+   tokens, and another seed other tokens.
+17. the f32 oracle: llama_13b() cut to 2 layers with 10 kv heads (full
+   width, g = 4) in f32 on the card and a CPU copy of its weights; 4 requests of
+   16-64 tokens, 16 new tokens each, held to the CPU's sequential
+   generate() by phase 5's rule; B4 launches ticks x 8 x 2.
+18. training at LLaMA-13B's width: llama_13b() cut to 2 layers, f32, loss
+   and every grad at batch 1 x 64 against a CPU copy (as phase 7); then
+   TrainStep(llama_13b() cut to 4 layers .bfloat16(), AdamW(lr=1e-4,
+   multi_precision=True)) at batch 4 x seq 2048, 1 warm step then 5:
+   finite, falling losses, the first within 0.5 of ln V + H r^2 / 2 (the
+   loss of the random logits, H = 5120, r = 0.02: 11.39, where ln V alone
+   is 10.37); B1 4 launches a step each way, all on the tensor-core
+   kernels, B2 1 + 1, no plain version; one step profiled. Depth is cut
+   to 4: all 40 layers would need 208 GB of weights and optimizer state.
+19. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
    wgmma kernels of phases 8 and 14, and the f32 3xTF32 ones of phases 7
-   and 13, their launches from the tensor-core counts; B3 four times: kv_slot_write and kv_paged_write with
-   their launches in phases 6 and 9, and the per-plane fused_slot_write
-   and fused_paged_write, which no serving path launches: 0), the card
+   and 13, their launches from the tensor-core counts; B3 four times:
+   kv_slot_write and kv_paged_write with their launches in phases 6 and
+   9, and the per-plane fused_slot_write and fused_paged_write, which no
+   serving path launches: 0; then LLaMA-13B's rows: B4 and kv_paged_write
+   with their launches in phases 15 and 16, B1 at D 128 and B2 at V 32000
+   with phase 18's), the serving lines of phases 15 and 16, the card
    line, and last the {"ok": true, "device": {...}} line.
 
 ``python3 chip_smoke.py --sp-cards`` on a host with 4 or more cards runs
@@ -139,6 +178,8 @@ checks, and prints
 their summary lines and no result line: copied into a checkout of an
 earlier commit, it measures that commit's serving the same way.
 """
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -158,6 +199,11 @@ TICK = 8
 LAYERS = 12
 PAGE, NUM_PAGES = 16, 512           # the paged engine's default pool
 SP = 4                              # the sequence-parallel degree
+# LLaMA-13B (paddle_tpu/models/llama.py:llama_13b): 40 layers of 40 heads
+# of 128, V = 32000, served at max_len 2048; its paged pool holds 8 slots'
+# worth of 16-row pages
+LLAMA_L, LLAMA_LAYERS, LLAMA_HEADS, LLAMA_HD = 2048, 40, 40, 128
+LLAMA_V, LLAMA_NP = 32000, B_SLICE * 2048 // 16
 
 
 def fail(msg):
@@ -215,16 +261,19 @@ def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
 
 # (nh, nkv, hd) of B4's further cases: GQA at g = 2, 4, 8, head sizes whose
 # row is no multiple of 16 bytes in bf16 (36: 8-byte loads; 33: 2-byte
-# loads, 4-byte in f32) and the largest head size
+# loads, 4-byte in f32), the largest head size, and group counts off the
+# powers of two: g = 3, 5, 16 (two sub-groups of 8 query heads a block)
+# and MQA at 40 and 64 query heads (5 and 8 sub-groups)
 B4_CASES = ((24, 12, 64), (32, 8, 128), (64, 8, 128), (12, 12, 36),
-            (8, 4, 33), (8, 2, 256))
+            (8, 4, 33), (8, 2, 256), (36, 12, 64), (40, 8, 128),
+            (128, 8, 128), (40, 1, 128), (64, 1, 64))
 
 
-def b4_vs_plain(torch, md, gen, qdt, cdt, tol, nh, nkv, hd, pv):
+def b4_vs_plain(torch, md, gen, qdt, cdt, tol, nh, nkv, hd, pv, L=L_SLICE):
     """One B4 launch against the plain version on copies of the same
     inputs: ctx within ``tol``, caches bit-exact, ctx == v where pos = 0
     and q is f32. Returns the max |ctx error|."""
-    B, L, dev = len(pv), L_SLICE, torch.device("cuda")
+    B, dev = len(pv), torch.device("cuda")
     q = torch.randn(B, 1, nh, hd, device=dev, generator=gen).to(qdt)
     k = torch.randn(B, 1, nkv, hd, device=dev, generator=gen).to(qdt)
     v = torch.randn(B, 1, nkv, hd, device=dev, generator=gen).to(qdt)
@@ -290,47 +339,82 @@ def check_mega_decode(torch, md, flush, rng_pos):
     rows = {}
     for cdt, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for pv, where in ((rng_pos, "serving-like pos"),
-                          ([L] * B, "full cache"), ([-1] * B, "empty")):
-            q = torch.randn(B, 1, nh, hd, device=dev, generator=gen)
-            k = torch.randn(B, 1, nkv, hd, device=dev, generator=gen)
-            v = torch.randn(B, 1, nkv, hd, device=dev, generator=gen)
-            kc = torch.randn(B, L, nkv, hd, device=dev, generator=gen).to(cdt)
-            vc = torch.randn(B, L, nkv, hd, device=dev, generator=gen).to(cdt)
-            pos = torch.tensor(pv, dtype=torch.int32, device=dev)
-            ms = timed(torch, lambda: md.mega_decode_step(q, k, v, kc, vc, pos),
-                       flush)
-            if where == "empty":
-                floors[f"B4 {label}, pos = -1"] = ms
-                continue
-            if where == "full cache":
-                both = torch.cat([kc.reshape(-1), vc.reshape(-1)])
-                floors[f"torch.sum of {both.numel() * both.element_size()}"
-                       f" B {label}"] = timed(torch, both.sum, flush)
-                del both
-            plain_ms = timed(torch, lambda: md.mega_decode_step_plain(
-                q, k, v, kc, vc, pos), flush)
-            # yardstick: SDPA over the same cache, mask l <= pos (the
-            # kernel has written the new rows by now), attention only
-            q4 = q.to(cdt).transpose(1, 2)
-            k4, v4 = kc.transpose(1, 2), vc.transpose(1, 2)
-            lid = torch.arange(L, device=dev)
-            mask = (lid[None, :] <= pos.long()[:, None])[:, None, None, :]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib_ms = timed(torch, lambda: sdpa(q4, k4, v4, attn_mask=mask),
-                           flush)
-            nbytes, ops = b4_cost(pv, L, nh, nkv, hd, 4,
-                                  torch.tensor([], dtype=cdt).element_size())
-            bound_ms, by = bound(nbytes, ops)
-            rows[(label, where)] = dict(ms=ms, plain_ms=plain_ms,
-                                        library_ms=lib_ms, bound_ms=bound_ms,
-                                        bound_by=by, bytes=nbytes, ops=ops)
-            print(f"  mega_decode_step cache={label} {where}: kernel {ms:.4f} "
-                  f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({by}: {nbytes} B, {ops} ops)",
-                  flush=True)
+                          ([L] * B, "full cache")):
+            rows[(label, where)] = b4_timed(
+                torch, md, flush, gen, (B, L, nh, nkv, hd), torch.float32,
+                cdt, pv, f"cache={label} {where}")
+        q = torch.randn(B, 1, nh, hd, device=dev, generator=gen)
+        k, v = (torch.randn(B, 1, nkv, hd, device=dev, generator=gen)
+                for _ in range(2))
+        kc, vc = (torch.randn(B, L, nkv, hd, device=dev,
+                              generator=gen).to(cdt) for _ in range(2))
+        pos = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        floors[f"B4 {label}, pos = -1"] = timed(
+            torch, lambda: md.mega_decode_step(q, k, v, kc, vc, pos), flush)
+        both = torch.cat([kc.reshape(-1), vc.reshape(-1)])
+        floors[f"torch.sum of {both.numel() * both.element_size()} B "
+               f"{label}"] = timed(torch, both.sum, flush)
+        del both
     print("  floors: " + ", ".join(f"{n} {t:.4f} ms"
                                     for n, t in floors.items()), flush=True)
     return errs, rows
+
+
+def b4_timed(torch, md, flush, gen, shape, qdt, cdt, pv, what):
+    """Time one B4 launch at ``shape`` = (B, L, nh, nkv, hd), q/k/v of
+    ``qdt``, caches of ``cdt``, positions ``pv``, beside its plain version,
+    SDPA over the same cache (mask l <= pos: the kernel has written the
+    new rows by then; attention only) and the bound; returns the row."""
+    B, L, nh, nkv, hd = shape
+    dev = torch.device("cuda")
+    q = torch.randn(B, 1, nh, hd, device=dev, generator=gen).to(qdt)
+    k, v = (torch.randn(B, 1, nkv, hd, device=dev, generator=gen).to(qdt)
+            for _ in range(2))
+    kc, vc = (torch.randn(B, L, nkv, hd, device=dev, generator=gen).to(cdt)
+              for _ in range(2))
+    pos = torch.tensor(pv, dtype=torch.int32, device=dev)
+    ms = timed(torch, lambda: md.mega_decode_step(q, k, v, kc, vc, pos),
+               flush)
+    plain_ms = timed(torch, lambda: md.mega_decode_step_plain(
+        q, k, v, kc, vc, pos), flush, iters=10)
+    q4 = q.to(cdt).transpose(1, 2)
+    k4, v4 = kc.transpose(1, 2), vc.transpose(1, 2)
+    lid = torch.arange(L, device=dev)
+    mask = (lid[None, :] <= pos.long()[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = timed(torch, lambda: sdpa(q4, k4, v4, attn_mask=mask), flush)
+    nbytes, ops = b4_cost(pv, L, nh, nkv, hd, q.element_size(),
+                          kc.element_size())
+    bound_ms, by = bound(nbytes, ops)
+    print(f"  mega_decode_step {what}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by}: {nbytes} B, {ops} ops)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=ops)
+
+
+def check_mega_decode_llama(torch, md, flush, rng_pos):
+    """Phase 3, B4 at LLaMA-13B's serving shape (B=8, L=2048, 40 heads of
+    128, bf16 q and cache, as phase 15 runs it): kernel vs plain at
+    positions that include the chunk edges of its plan, then timed
+    serving-like and full."""
+    B, L, nh, hd = B_SLICE, LLAMA_L, LLAMA_HEADS, LLAMA_HD
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    chunk, nchunks = md.plan_chunks(B, nh, L, md._sm_count(0))
+    print(f"  mega_decode_step chunks at B={B} nkv={nh} L={L}: {nchunks} "
+          f"of {chunk} rows, {B * nh * nchunks} blocks", flush=True)
+    pos_sets = [rng_pos, [L] * B,
+                [0, chunk - 1, chunk, chunk + 1, L - chunk, L - 1, L, -1]]
+    worst = max(b4_vs_plain(torch, md, gen, torch.bfloat16, torch.bfloat16,
+                            2e-2, nh, nh, hd, pv, L=L) for pv in pos_sets)
+    print(f"  mega_decode_step llama_13b bf16 q and cache, L={L}: max |ctx "
+          f"err| {worst:.3e} (tol 2e-2), caches bit-exact", flush=True)
+    rows = {where: b4_timed(torch, md, flush, gen, (B, L, nh, nh, hd),
+                            torch.bfloat16, torch.bfloat16, pv,
+                            f"llama_13b bf16 {where}")
+            for pv, where in ((rng_pos, "serving-like pos"),
+                              ([L] * B, "full cache"))}
+    return worst, rows
 
 
 def check_slot_write(torch, cw, flush, rng_pos):
@@ -590,18 +674,26 @@ KV_PAGED_KINDS = (("bf16", "f32"), ("f32", "f32"), ("int8", "f32"),
                   ("bf16", "bf16"), ("f32", "bf16"), ("int8", "bf16"))
 
 
-def check_kv_paged_write(torch, np, cw, flush, rng_pos):
+# the rows kv_paged_write is timed at: (pool kind, shape, rows kind)
+KV_PAGED_TIMED = (("bf16", "decode", "f32"), ("int8", "decode", "f32"),
+                  ("f32", "decode", "f32"), ("bf16", "admission", "f32"),
+                  ("int8", "admission", "f32"))
+
+
+def check_kv_paged_write(torch, np, cw, flush, rng_pos, NP=NUM_PAGES,
+                         nkv=NKV, hd=HD, L=L_SLICE, cases=KV_PAGED_CASES,
+                         kinds=KV_PAGED_KINDS, timing=KV_PAGED_TIMED):
     """Phase 3, B3 paged fused: ``kv_paged_write`` against its plain version
-    (and the composite it replaced) into two [512, 16, 12, 64] pool halves
-    with 64-page tables, the rows cut from a [B, S, 3 x 768] qkv output as
-    the model cuts them; every case of KV_PAGED_CASES in every kind of
-    KV_PAGED_KINDS, both pool leaves compared (NaN where NaN: one k head
-    row is all zero, one v row holds a NaN). Times the main path's rows
-    (f32 rows; decode, n = 8 a half, and admission, n = 512) beside the
-    composite, index_put_ on each leaf with the indices precomputed, and
-    the byte bound."""
-    NP, PS, nkv, hd = NUM_PAGES, PAGE, NKV, HD
-    PM, H = L_SLICE // PS, NKV * HD
+    (and the composite it replaced) into two [NP, 16, nkv, hd] pool halves
+    with L / 16-page tables ([512, 16, 12, 64] and 64 pages for the GPT
+    slice), the rows cut from a [B, S, 3 x nkv hd] qkv output as GPT cuts
+    them; every case of ``cases`` in every kind of ``kinds``, both pool
+    leaves compared (NaN where NaN: one k head row is all zero, one v row
+    holds a NaN). Times the main path's rows (``timing``: decode, n = 8 a
+    half, and admission, n = 512) beside the composite, index_put_ on each
+    leaf with the indices precomputed, and the byte bound."""
+    PS = PAGE
+    PM, H = L // PS, nkv * hd
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
     rng = np.random.default_rng(9)
@@ -640,8 +732,8 @@ def check_kv_paged_write(torch, np, cw, flush, rng_pos):
     def clone(p):
         return {n: t.clone() for n, t in p.items()}
 
-    for kind, rows_kind in KV_PAGED_KINDS:
-        for case in KV_PAGED_CASES:
+    for kind, rows_kind in kinds:
+        for case in cases:
             k, v, bt, pos, live, wlen, _, _ = inputs(case, rows_kind)
             pools = [pool(kind), pool(kind)]
             got, want, comp = ([clone(p) for p in pools] for _ in range(3))
@@ -662,17 +754,16 @@ def check_kv_paged_write(torch, np, cw, flush, rng_pos):
                         fail(f"kv_paged_write {kind} pool, {rows_kind} rows"
                              f", {case[0]}: the composite's {n} differs "
                              "from the plain version's")
-        print(f"  kv_paged_write {kind} pool, {rows_kind} rows: bit-exact "
-              f"(NaN where NaN) with the plain version and the composite in "
-              f"{len(KV_PAGED_CASES)} cases", flush=True)
+        print(f"  kv_paged_write {kind} pool [{NP}, {PS}, {nkv}, {hd}], "
+              f"{rows_kind} rows: bit-exact (NaN where NaN) with the plain "
+              f"version and the composite in {len(cases)} cases",
+              flush=True)
 
     rows = {}
-    for kind, shape in (("bf16", "decode"), ("int8", "decode"),
-                        ("f32", "decode"), ("bf16", "admission"),
-                        ("int8", "admission")):
+    for kind, shape, rows_kind in timing:
         case = ((shape, B_SLICE, 1, None, None, None, {})
                 if shape == "decode" else (shape, 1, 512, 0, None, None, {}))
-        k, v, bt, pos, _, _, n_rows, entries = inputs(case, "f32",
+        k, v, bt, pos, _, _, n_rows, entries = inputs(case, rows_kind,
                                                        specials=False)
         pools = [pool(kind), pool(kind)]
         ms = timed(torch, lambda: cw.kv_paged_write(k, v, *pools, bt, pos),
@@ -714,8 +805,9 @@ def check_kv_paged_write(torch, np, cw, flush, rng_pos):
                                    composite_ms=comp_ms, library_ms=lib_ms,
                                    bound_ms=bound_ms, bound_by=by,
                                    bytes=nbytes)
-        print(f"  kv_paged_write {kind} pool, f32 rows, n={n_rows} a half "
-              f"({shape}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        print(f"  kv_paged_write {kind} pool [{NP}, {PS}, {nkv}, {hd}], "
+              f"{rows_kind} rows, n={n_rows} a half ({shape}): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"composite (2 calls) {comp_ms:.4f} ms, index_put_ "
               f"({len(leaves)} leaves) {lib_ms:.4f} ms, bound "
               f"{bound_ms:.6f} ms ({by}: {nbytes} B)", flush=True)
@@ -1061,7 +1153,16 @@ def hold_to_f64(torch, what, got, plain, ref):
     check_all(torch, f"{what} vs f64", list(zip(names, got, ref, lims)))
 
 
-def check_flash(torch, fa, flush):
+# B1's cases at the training slice's shape: (dtype, causal, q_off, k_off);
+# with keys from global position 512, query rows 0..511 see no key (out 0,
+# lse -inf, zero grads)
+B1_CASES = (("bfloat16", True, 0, 0), ("float32", True, 0, 0),
+            ("bfloat16", False, 0, 0), ("float32", False, 0, 0),
+            ("float32", True, 0, 512), ("bfloat16", True, 0, 512))
+
+
+def check_flash(torch, fa, flush, shape=(B_SLICE, NKV, L_SLICE, HD),
+                cases=B1_CASES, timing=("bfloat16", "float32")):
     """Phase 3, B1: kernel vs plain at the training slice's shapes; bf16
     (``LIM_BF16``) and f32 (``LIM_F32``) at D 64 take the tensor-core
     kernels, both held to the plain versions (f32 products), the f32
@@ -1071,18 +1172,14 @@ def check_flash(torch, fa, flush):
     kernels beside SDPA, the plain version and the bound of their route,
     and for f32 the SIMT kernels at the same inputs through their C
     entries (the design these replace) and their 67-TFLOP/s bound."""
-    B, H, S, D = B_SLICE, NKV, L_SLICE, HD
+    B, H, S, D = shape
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     scale = 1.0 / D ** 0.5
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    cases = [(torch.bfloat16, True, 0, 0), (torch.float32, True, 0, 0),
-             (torch.bfloat16, False, 0, 0), (torch.float32, False, 0, 0),
-             # keys start at global position 512: query rows 0..511 see no
-             # key (out 0, lse -inf, zero grads)
-             (torch.float32, True, 0, 512), (torch.bfloat16, True, 0, 512)]
     errs = {}
-    for dt, causal, q_off, k_off in cases:
+    for dt_name, causal, q_off, k_off in cases:
+        dt = getattr(torch, dt_name)
         q, k, v, do = (torch.randn(B, H, S, D, device=dev,
                                    generator=gen).to(dt) for _ in range(4))
         reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
@@ -1094,7 +1191,8 @@ def check_flash(torch, fa, flush):
         grads_p = fa.flash_attn_bwd_plain(q, k, v, out_p, lse_p, do, causal,
                                           scale, q_off, k_off)
         torch.cuda.synchronize()
-        what = f"flash_attn {dt} causal={causal} q_off/k_off={q_off}/{k_off}"
+        what = (f"flash_attn {dt} B/H/S/D={B}/{H}/{S}/{D} causal={causal} "
+                f"q_off/k_off={q_off}/{k_off}")
         expect_path(what, fa, dt, D,
                     path_counts(fa.flash_attn_fwd, fa.flash_attn_bwd), 2)
         lim = LIM_BF16 if dt == torch.bfloat16 else LIM_F32
@@ -1129,8 +1227,7 @@ def check_flash(torch, fa, flush):
                      f32=dt == torch.float32)
 
     rows = {}
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (getattr(torch, n) for n in timing):
         q, k, v, do = (torch.randn(B, H, S, D, device=dev,
                                    generator=gen).to(dt) for _ in range(4))
         out, lse = fa.flash_attn_fwd(q, k, v, True, scale)
@@ -1166,7 +1263,8 @@ def check_flash(torch, fa, flush):
             extra = "" if simt[kind] is None else (
                 f", SIMT kernel {simt[kind]:.4f} ms (its bound "
                 f"{bound(nb, ops)[0]:.4f} ms)")
-            print(f"  flash_attn_{kind} {label} causal: kernel {ms:.4f} ms, "
+            print(f"  flash_attn_{kind} {label} B/H/S/D={B}/{H}/{S}/{D} "
+                  f"causal: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({by}: {nb} B, {ops} ops){extra}",
                   flush=True)
@@ -1358,14 +1456,18 @@ def ce_cost(N, V, elem):
     return fwd, 4 * N * V, bwd, 5 * N * V
 
 
-def check_ce(torch, ce, flush):
+def check_ce(torch, ce, flush, V=50304, cases=None,
+             timing=("bfloat16", "float32")):
     """Phase 3, B2: kernel vs plain at the training slice's shapes (the
-    port runs all B*S = 8192 rows; 8184 = 8 x 1023 is the sliced count)."""
-    V = 50304
+    port runs all B*S = 8192 rows; 8184 = 8 x 1023 is the sliced count),
+    or at ``V`` and ``cases`` ((N, dtype, valid vocab)) given; timed at
+    N = 8192 in each dtype of ``timing``."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
-    cases = [(8192, torch.bfloat16, None), (8192, torch.float32, None),
-             (8184, torch.bfloat16, 50257), (8184, torch.float32, 50257)]
+    cases = cases or [(8192, torch.bfloat16, None),
+                      (8192, torch.float32, None),
+                      (8184, torch.bfloat16, 50257),
+                      (8184, torch.float32, 50257)]
     errs = {}
     for N, dt, vv in cases:
         lg = (torch.randn(N, V, device=dev, generator=gen) * 3).to(dt)
@@ -1380,13 +1482,13 @@ def check_ce(torch, ce, flush):
         torch.cuda.synchronize()
         label = "bf16" if dt == torch.bfloat16 else "f32"
         errs[(N, dt, vv)] = check_all(
-            torch, f"fused_ce N={N} {dt} valid_vocab={vv}",
+            torch, f"fused_ce N={N} V={V} {dt} valid_vocab={vv}",
             (("per", per, per_p, LIM_LSE), ("lse", lse, lse_p, LIM_LSE),
              ("dlogits", d, d_p, LIM_DLOGITS[label])))
 
     rows = {}
     lib = torch.nn.functional.cross_entropy
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (getattr(torch, n) for n in timing):
         N = 8192
         lg = (torch.randn(N, V, device=dev, generator=gen) * 3).to(dt)
         lab = torch.randint(0, V, (N,), device=dev, generator=gen,
@@ -1414,24 +1516,69 @@ def check_ce(torch, ce, flush):
             rows[(label, kind)] = dict(ms=ms, plain_ms=plain_ms,
                                        library_ms=lib_ms, bound_ms=bound_ms,
                                        bound_by=by)
-            print(f"  ce_{kind} {label} N={N}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, F.cross_entropy {lib_ms:.4f} ms, "
+            print(f"  ce_{kind} {label} N={N} V={V}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, F.cross_entropy {lib_ms:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)",
                   flush=True)
     return errs, rows
 
 
-def train_parity(torch, pkg):
+# _select_token's knobs, (temperature, top_k, top_p): each alone, then all
+# together as phase 16 serves
+SAMPLING_KNOBS = ((1.0, 0, 1.0), (0.8, 0, 1.0), (1.0, 50, 1.0),
+                  (1.0, 0, 0.95), (0.8, 50, 0.95))
+
+
+def check_sampling(torch, np, gm, flush):
+    """Phase 3, sampling: ``generation._select_token`` on the card against
+    the CPU on the same 64 rows of logits at V = 32000 (row i keyed as a
+    request with seed i at a position of its own), for each of
+    SAMPLING_KNOBS. The tokens must be the same, except where the CPU's
+    perturbed top-2 margin (filtered logits plus the Gumbel noise) is
+    below 1e-4 (phase 5's rule: the hash's bits are the same on both, the
+    f32 logs may differ in the last bit). Then the all-knobs draw of the
+    serving tick (8 rows of bf16 logits) timed."""
+    rs = np.random.RandomState(21)
+    lg = torch.from_numpy((rs.randn(64, LLAMA_V) * 3).astype(np.float32))
+    keys = gm.fold_in(torch.stack([gm.prng_key(i) for i in range(64)]),
+                      torch.from_numpy(rs.randint(0, LLAMA_L, 64)))
+    for knobs in SAMPLING_KNOBS:
+        cpu = gm._select_token(lg, keys, True, *knobs)
+        card = gm._select_token(lg.cuda(), keys.cuda(), True, *knobs).cpu()
+        pert = gm._filter_logits(lg, *knobs) + gm._gumbel(keys, LLAMA_V)
+        top2 = torch.topk(pert, 2).values
+        near = top2[:, 0] - top2[:, 1] < 1e-4
+        bad = (cpu != card) & ~near
+        if bool(bad.any()):
+            fail(f"_select_token T/k/p={knobs}: rows "
+                 f"{bad.nonzero()[:, 0].tolist()} differ between the card "
+                 "and the CPU")
+        print(f"  _select_token T/k/p={knobs}: {int((cpu == card).sum())}"
+              f"/64 rows the same token on the card and the CPU; "
+              f"{int(near.sum())} rows with a perturbed top-2 margin < 1e-4",
+              flush=True)
+    lg8, k8 = lg[:8].cuda().bfloat16(), keys[:8].cuda()
+    ms = timed(torch, lambda: gm._select_token(lg8, k8, True,
+                                               *SAMPLING_KNOBS[-1]), flush)
+    print(f"  _select_token at the serving tick (8 x {LLAMA_V} bf16, "
+          f"T/k/p={SAMPLING_KNOBS[-1]}): {ms:.4f} ms", flush=True)
+
+
+def train_parity(torch, pkg, build=None, shape=(2, 128), layers=LAYERS):
     """Phase 7, first part: one f32 loss + backward of gpt_125m on the
     card against a CPU copy of the same weights, batch 2 x seq 128; every
-    B1 launch on the 3xTF32 tensor-core kernels."""
-    GPT, cfg = pkg["GPT"], pkg["gpt_125m"]
-    model = GPT(cfg(), seed=2).train()
-    cpu = GPT(cfg(), device="cpu", seed=3).train()
+    B1 launch on the 3xTF32 tensor-core kernels. Phase 18 the same with
+    ``build(device=..., seed=...)``'s model at ``shape``, B1 on the path
+    ``_tc_path`` gives its head size."""
+    if build is None:
+        def build(**kw):
+            return pkg["GPT"](pkg["gpt_125m"](), **kw)
+    model = build(seed=2).train()
+    cpu = build(device="cpu", seed=3).train()
     pkg["load"](cpu, {n: p.detach().cpu().numpy()
                       for n, p in model.named_parameters()})
     ids = pkg["np"].random.RandomState(1).randint(
-        0, model.cfg.vocab_size, (2, 128))
+        0, model.cfg.vocab_size, shape)
     losses, grads = [], []
     fa = pkg["fa"]
     reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
@@ -1443,10 +1590,12 @@ def train_parity(torch, pkg):
         grads.append({n: p.grad for n, p in m.named_parameters()})
     counts = {w.__name__: (w.tc_launches, w.simt_launches)
               for w in (fa.flash_attn_fwd, fa.flash_attn_bwd)}
-    if counts != {n: (LAYERS, 0) for n in counts}:
+    D = model.cfg.hidden_size // model.cfg.num_heads
+    want = (layers, 0) if fa._tc_path(torch.float32, D) else (0, layers)
+    if counts != {n: want for n in counts}:
         fail(f"f32 parity: B1 (tensor-core, SIMT) launches {counts} != "
-             f"({LAYERS}, 0) each: f32 at D 64 must run the 3xTF32 "
-             "tensor-core kernels")
+             f"{want} each: f32 at D {D} must run the kernels _tc_path "
+             "picks")
     rel = abs(losses[0] - losses[1]) / abs(losses[1])
     if not rel <= 1e-5:
         fail(f"f32 parity: loss card {losses[0]} cpu {losses[1]} (rel {rel} "
@@ -1523,25 +1672,31 @@ def profile_window(torch, what, fn, top=10):
     return rows, wall_us
 
 
-def train_step(torch, pkg, steps=5, sp=1, f32=False):
+def train_step(torch, pkg, steps=5, sp=1, f32=False, build=None,
+               batch=B_SLICE, seq=L_SLICE, layers=LAYERS, first_loss=None):
     """Phase 8 (sp = 1, bf16), phase 14 (the same step under an sp-way
     mesh on the one card) and phase 7's f32 step (``f32``: the same model
     with f32 weights, AdamW without master weights): the slice's step,
-    bench.py's geometry. Returns the kernel launch counts of the timed
-    steps, the losses (warm step first), the ms per timed step and the
-    attention wrappers' (tensor-core, SIMT) launch counts."""
+    bench.py's geometry. Phase 18 gives ``build()`` (the f32 model),
+    ``batch`` x ``seq``, its ``layers`` and the loss its random weights
+    start at (``first_loss``; ln V by default). Returns the kernel launch
+    counts of the timed steps, the losses (warm step first), the ms per
+    timed step and the attention wrappers' (tensor-core, SIMT) launch
+    counts."""
     fa, ce, fb, dist = pkg["fa"], pkg["ce"], pkg["fb"], pkg["dist"]
     torch.cuda.reset_peak_memory_stats()
-    model = pkg["GPT"](pkg["gpt_125m"](), seed=0)
+    model = (build() if build is not None
+             else pkg["GPT"](pkg["gpt_125m"](), seed=0))
     if not f32:
         model = model.bfloat16()
+        torch.cuda.empty_cache()
     opt = pkg["AdamW"](learning_rate=1e-4, parameters=model.parameters(),
                        multi_precision=not f32)
     step = pkg["TrainStep"](model, model.make_loss_fn(), opt)
     label = "f32" if f32 else "bf16"
     rs = pkg["np"].random.RandomState(0)
     ids = torch.from_numpy(rs.randint(0, model.cfg.vocab_size,
-                                      (B_SLICE, L_SLICE)).astype("int64"))
+                                      (batch, seq)).astype("int64"))
     ids = ids.to(model.device)
     if sp > 1:
         dist.init_mesh({"sp": sp}, devices=["cuda:0"] * sp)
@@ -1567,8 +1722,8 @@ def train_step(torch, pkg, steps=5, sp=1, f32=False):
                   "flash_block_bwd": fb.flash_block_bwd.launches,
                   "ce_fwd": ce.ce_fwd.launches, "ce_bwd": ce.ce_bwd.launches}
         vals = [float(x) for x in losses]
-        b1 = steps * LAYERS if sp == 1 else 0
-        b5 = steps * LAYERS * sp * sp if sp > 1 else 0
+        b1 = steps * layers if sp == 1 else 0
+        b5 = steps * layers * sp * sp if sp > 1 else 0
         want = {"flash_attn_fwd": b1, "flash_attn_bwd": b1,
                 "flash_block_fwd": b5, "flash_block_bwd": b5,
                 "ce_fwd": steps, "ce_bwd": steps}
@@ -1576,18 +1731,19 @@ def train_step(torch, pkg, steps=5, sp=1, f32=False):
         if counts != want or any(plain.values()) or paths != {
                 w.__name__: (want[w.__name__], 0) for w in attn}:
             fail(f"train step (sp={sp}, {label}) launches {counts} != "
-                 f"{want} (= {steps} steps x {LAYERS} layers x 1, or x "
+                 f"{want} (= {steps} steps x {layers} layers x 1, or x "
                  f"sp^2 = {sp * sp} ring blocks / x 1), plain calls "
                  f"{plain}, (tensor-core, SIMT) {paths}: every launch must "
                  "take the tensor-core kernels")
         if sp > 1 and dist.last_ring_dispatch()["path"] != "kernel":
             fail(f"sp step dispatch {dist.last_ring_dispatch()}")
-        ln_v = math.log(model.cfg.vocab_size)
+        start = (math.log(model.cfg.vocab_size) if first_loss is None
+                 else first_loss)
         if not all(math.isfinite(x) for x in vals):
             fail(f"train step: non-finite loss in {vals}")
-        if not abs(vals[0] - ln_v) <= 0.5:
-            fail(f"train step: first loss {vals[0]} not within 0.5 of ln V "
-                 f"{ln_v:.4f}")
+        if not abs(vals[0] - start) <= 0.5:
+            fail(f"train step: first loss {vals[0]} not within 0.5 of "
+                 f"{start:.4f}")
         if not vals[-1] < min(vals[0], vals[1]):
             fail(f"train step: the last loss is not below the first: {vals}")
         ms = wall / steps * 1e3
@@ -1602,7 +1758,7 @@ def train_step(torch, pkg, steps=5, sp=1, f32=False):
             f"{attn_us / 1e3:.3f} ms device time in the flash kernels "
             f"({100 * attn_us / prof_wall:.1f} % of the profiled step's wall)")
     print(f"  losses {['%.4f' % x for x in vals]} (warm step first); "
-          f"{ms:.1f} ms/step, {B_SLICE * L_SLICE / (ms / 1e3):.0f} tokens/s "
+          f"{ms:.1f} ms/step, {batch * seq / (ms / 1e3):.0f} tokens/s "
           f"(smoke number, {steps} steps); launches {counts}, (tensor-core, "
           f"SIMT) {paths}, plain calls {plain}; profiled step: {attn}; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
@@ -1696,13 +1852,17 @@ def check_sp_attention(torch, pkg, S, devices, timing):
     return sp_paths
 
 
-def post_all(url, prompts, max_new):
-    """POST /generate for every prompt at once; returns (status, body)s."""
+def post_all(url, prompts, max_new, seeds=None):
+    """POST /generate for every prompt at once (``seeds[i]`` as request
+    i's "seed" when given); returns (status, body)s."""
     results = [None] * len(prompts)
 
     def one(i):
-        data = json.dumps({"input_ids": [int(t) for t in prompts[i]],
-                           "max_new_tokens": max_new}).encode()
+        payload = {"input_ids": [int(t) for t in prompts[i]],
+                   "max_new_tokens": max_new}
+        if seeds is not None:
+            payload["seed"] = int(seeds[i])
+        data = json.dumps(payload).encode()
         req = urllib.request.Request(url + "/generate", data=data,
                                      headers={"Content-Type":
                                               "application/json"})
@@ -1739,18 +1899,21 @@ def forwards(st):
 
 
 def serve(torch, pkg, model, cache_dtype, prompts, slots=8, profile=False,
+          max_len=L_SLICE, max_new=MAX_NEW, seeds=None, extra=None,
           **engine_kw):
-    """Serve ``prompts`` through engine + HTTP server with the launch
-    counters zeroed just before, and every plain version of a serving
-    kernel counted; returns a dict of the token lists, the engine's stats
-    just after the requests, the launch counts, the wall seconds and ms a
-    tick. Fails on a malformed reply or a plain call. With ``profile``,
-    serves the same prompts once more under torch.profiler after reading
-    the counts (a paged engine's prefix cache is warm by then) and adds the
-    device busy share and the device kernels a forward of that rerun."""
+    """Serve ``prompts`` (``max_new`` tokens each, ``seeds`` as their
+    "seed") through engine + HTTP server with the launch counters zeroed
+    just before, and every plain version of a serving kernel counted;
+    returns a dict of the token lists, the engine's stats just after the
+    requests, the launch counts, the wall seconds and ms a tick. Fails on
+    a malformed reply or a plain call. With ``profile``, serves the same
+    prompts once more under torch.profiler after reading the counts (a
+    paged engine's prefix cache is warm by then) and adds the device busy
+    share and the device kernels a forward of that rerun. ``extra(eng,
+    url)`` runs last, before the engine stops; its result is "extra"."""
     wrappers = {name: getattr(pkg[m], name) for m, name in SERVE_KERNELS
                 if hasattr(pkg[m], name)}
-    eng = pkg["Engine"](model, slots=slots, max_len=L_SLICE,
+    eng = pkg["Engine"](model, slots=slots, max_len=max_len,
                         cache_dtype=cache_dtype, tick_tokens=TICK,
                         **engine_kw)
     srv = pkg["Server"](eng, host="127.0.0.1", port=0, deadline_s=600).start()
@@ -1766,7 +1929,7 @@ def serve(torch, pkg, model, cache_dtype, prompts, slots=8, profile=False,
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
-        res = post_all(url, prompts, MAX_NEW)
+        res = post_all(url, prompts, max_new, seeds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {n: w.launches for n, w in wrappers.items()}
@@ -1776,7 +1939,8 @@ def serve(torch, pkg, model, cache_dtype, prompts, slots=8, profile=False,
         if profile:
             prof, wall_us = profile_window(
                 torch, f"{what} serving, the same {len(prompts)} requests "
-                "again", lambda: post_all(url, prompts, MAX_NEW), top=8)
+                "again", lambda: post_all(url, prompts, max_new, seeds),
+                top=8)
             n_fwd = forwards(eng.stats()) - forwards(stats)
             if prof:
                 busy_us = sum(r[0] for r in prof)
@@ -1796,6 +1960,9 @@ def serve(torch, pkg, model, cache_dtype, prompts, slots=8, profile=False,
                       f"device, x{sum(r[1] for r in b4)}, "
                       f"{100 * us / sum(r[0] for r in prof):.1f} % of the "
                       "device time", flush=True)
+                out["b4_device_ms"] = us / 1e3
+        if extra is not None:
+            out["extra"] = extra(eng, url)
     finally:
         restore()
         srv.stop()
@@ -1806,16 +1973,16 @@ def serve(torch, pkg, model, cache_dtype, prompts, slots=8, profile=False,
         if code != 200:
             fail(f"/generate ({what}) -> {code} {body}")
         t = body["tokens"]
-        if (len(t) != len(p) + MAX_NEW or t[:len(p)] != [int(x) for x in p]
-                or body["new_tokens"] != MAX_NEW
+        if (len(t) != len(p) + max_new or t[:len(p)] != [int(x) for x in p]
+                or body["new_tokens"] != max_new
                 or not all(0 <= x < vocab for x in t)):
             fail(f"/generate ({what}) body malformed: {body}")
         toks.append(t)
     if any(plain.values()):
         fail(f"{what}: plain versions ran on the card: {plain}")
     ms_tick = 1e3 * wall / stats["ticks"]
-    print(f"  {what}: {len(prompts)} requests x {MAX_NEW} tokens in "
-          f"{wall:.3f} s ({len(prompts) * MAX_NEW / wall:.1f} new tok/s "
+    print(f"  {what}: {len(prompts)} requests x {max_new} tokens in "
+          f"{wall:.3f} s ({len(prompts) * max_new / wall:.1f} new tok/s "
           f"incl. prefill), {stats['ticks']} ticks ({ms_tick:.2f} ms a tick, "
           f"host clock), {forwards(stats)} forwards, launches {counts}",
           flush=True)
@@ -1832,7 +1999,7 @@ def expect_launches(what, counts, **want):
         fail(f"{what}: launches {counts} != {full}")
 
 
-def check_oracle(torch, pkg, oracle, prompts, toks, what):
+def check_oracle(torch, pkg, oracle, prompts, toks, what, max_new=MAX_NEW):
     """Phase 5's rule: each request's tokens equal the sequential greedy
     generate() of the CPU copy, except where the CPU's top-2 logit margin
     at the first differing token is < 1e-4. Identical prompts are checked
@@ -1841,7 +2008,7 @@ def check_oracle(torch, pkg, oracle, prompts, toks, what):
     for p, got in zip(prompts, toks):
         key = tuple(int(x) for x in p)
         if key not in gen:
-            gen[key] = pkg["generate"](oracle, p, MAX_NEW,
+            gen[key] = pkg["generate"](oracle, p, max_new,
                                        cache_dtype="float32")[0]
         want_t = gen[key]
         diff = [i for i, (a, b) in enumerate(zip(got, want_t.tolist()))
@@ -1860,16 +2027,16 @@ def check_oracle(torch, pkg, oracle, prompts, toks, what):
     print(f"  {what} tokens match the sequential CPU oracle", flush=True)
 
 
-def paged_launch_check(run, what):
+def paged_launch_check(run, what, layers=LAYERS):
     """kv_paged_write launches must equal the forwards the engine ran (one
-    per admission, one per verify tick, tick_tokens per plain tick) x 12
-    layers, one launch a layer for both halves whatever the pool's type;
-    every other serving kernel never."""
+    per admission, one per verify tick, tick_tokens per plain tick) x
+    ``layers``, one launch a layer for both halves whatever the pool's
+    type; every other serving kernel never."""
     st = run["stats"]
-    want = forwards(st) * LAYERS
+    want = forwards(st) * layers
     expect_launches(f"{what} (({st['admitted']} admissions + "
                     f"{st.get('spec_ticks', 0)} verify ticks + plain ticks "
-                    f"x {TICK}) x {LAYERS})", run["counts"],
+                    f"x {TICK}) x {layers})", run["counts"],
                     kv_paged_write=want)
     return want
 
@@ -1946,6 +2113,145 @@ def serving_profiles(torch, pkg, card):
     print(card, flush=True)
 
 
+def release(torch):
+    """Free the card memory of what a phase dropped: a stopped server and
+    its engine (the 13.4 GB cache of a LLaMA-13B engine, and the model it
+    holds) sit in a reference cycle (the server's handler class refers back
+    to the server) until the cyclic collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def llama_repro(eng, np):
+    """Phase 16's reproducibility check on the sampling engine: a 12-token
+    prompt (no complete page, so nothing is shared through the prefix
+    cache) with seed 11 alone, then again while another request holds
+    slot 0 (so it takes another slot, at other ticks), then with seed 12.
+    The first two must be identical, the third must differ."""
+    rng = np.random.default_rng(16)
+    p, filler = rng.integers(0, LLAMA_V, 12), rng.integers(0, LLAMA_V, 200)
+    t_a = eng.ticks
+    a = eng.generate(p, MAX_NEW, seed=11, timeout=600)
+    fut = eng.submit(filler, 4 * MAX_NEW, None, 5)
+    deadline = time.time() + 600
+    while eng.stats()["active"] < 1 and time.time() < deadline:
+        time.sleep(0.005)
+    busy = [not sl.free for sl in eng._slots]
+    t_b = eng.ticks
+    b = eng.generate(p, MAX_NEW, seed=11, timeout=600)
+    fut.result(timeout=600)
+    c = eng.generate(p, MAX_NEW, seed=12, timeout=600)
+    if not np.array_equal(a, b):
+        fail(f"sampling: one prompt and seed gave {a[12:].tolist()} alone "
+             f"and {b[12:].tolist()} in another slot at other ticks")
+    if np.array_equal(a, c):
+        fail("sampling: seeds 11 and 12 gave the same tokens")
+    print(f"  reproducible: seed 11 alone (from tick {t_a}) and beside a "
+          f"request in slot 0 (slots busy {busy}, from tick {t_b}) gave the "
+          f"same {MAX_NEW} tokens; seed 12 differs in "
+          f"{int((a != c).sum())} of them", flush=True)
+
+
+def llama_serving(torch, pkg):
+    """Phases 15 and 16: LLaMA-13B served at full width and depth (bf16
+    slot cache; paged bf16 pool with sampling). Returns the numbers the
+    summary line takes."""
+    np, Llama, cfg13 = pkg["np"], pkg["Llama"], pkg["llama_13b"]
+    out = {}
+    print("phase 15: serving LLaMA-13B (40 layers, full width), bf16 slot "
+          f"cache, max_len {LLAMA_L}", flush=True)
+    release(torch)                  # 52 GB of f32 draws before the cast
+    t0 = time.perf_counter()
+    model = Llama(cfg13(), seed=0).bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"  built {n / 1e9:.3f} B parameters ({2 * n / 1e9:.1f} GB bf16) "
+          f"on the card in {time.perf_counter() - t0:.1f} s (drawn in f32 "
+          "there, then cast)", flush=True)
+    prompts = serving_prompts(np, LLAMA_V)
+    run = serve(torch, pkg, model, "bfloat16", prompts[4], profile=True,
+                max_len=LLAMA_L)
+    out["b4"] = run["ticks"] * TICK * LLAMA_LAYERS
+    expect_launches(f"phase 15 (mega = {run['ticks']} ticks x {TICK} x "
+                    f"{LLAMA_LAYERS})", run["counts"],
+                    mega_decode_step=out["b4"])
+    out["serve15"] = run
+    release(torch)
+
+    print("phase 16: paged LLaMA-13B serving, bf16 pool, shared 256-token "
+          "prefix, sampling (temperature 0.8, top-k 50, top-p 0.95)",
+          flush=True)
+    run = serve(torch, pkg, model, "bfloat16", prompts[9], profile=True,
+                max_len=LLAMA_L, seeds=list(range(8)),
+                extra=lambda eng, url: llama_repro(eng, np), paged=True,
+                page_size=PAGE, prefix_cache=True, do_sample=True,
+                temperature=0.8, top_k=50, top_p=0.95)
+    st = run["stats"]
+    if st["pages_total"] != LLAMA_NP or (
+            st["prefix_hits"], st["prefix_misses"],
+            st["prefix_tokens_saved"]) != (7, 1, 7 * 16 * PAGE):
+        fail(f"phase 16: pages {st['pages_total']} != {LLAMA_NP} or prefix "
+             f"hits/misses/saved {st['prefix_hits']}/{st['prefix_misses']}/"
+             f"{st['prefix_tokens_saved']} != 7/1/{7 * 16 * PAGE}")
+    check_pool(run)
+    out["kvp"] = paged_launch_check(run, "phase 16", LLAMA_LAYERS)
+    out["serve16"] = run
+    del model
+    release(torch)
+    return out
+
+
+def llama_depth_cut(cfg13, layers, **kw):
+    """LLaMA-13B's config at ``layers`` layers (the reference's factory
+    fixes num_layers, so it is replaced after)."""
+    return dataclasses.replace(cfg13(), num_layers=layers, **kw)
+
+
+def llama_oracle_and_training(torch, pkg):
+    """Phases 17 and 18: LLaMA-13B's f32 oracle at full width and 2
+    layers (g = 4), and its training at full width (2 layers against the
+    CPU, then a 4-layer bf16 step). Returns phase 18's step (counts,
+    losses, ms, paths)."""
+    np, Llama, cfg13 = pkg["np"], pkg["Llama"], pkg["llama_13b"]
+    print("phase 17: LLaMA-13B width, 2 layers, 10 kv heads (g = 4), f32 "
+          "slot cache, vs the sequential CPU oracle", flush=True)
+    cfg = llama_depth_cut(cfg13, 2, num_kv_heads=10)
+    model = Llama(cfg, seed=1)
+    oracle = Llama(cfg, device="cpu", seed=2)
+    pkg["load"](oracle, {n: p.detach().cpu().numpy()
+                         for n, p in model.named_parameters()})
+    rng = np.random.default_rng(17)
+    prompts17 = [rng.integers(0, LLAMA_V, int(m))
+                 for m in rng.integers(16, 65, 4)]
+    run = serve(torch, pkg, model, "float32", prompts17, slots=4,
+                max_len=LLAMA_L, max_new=16)
+    expect_launches(f"phase 17 (mega = {run['ticks']} ticks x {TICK} x 2)",
+                    run["counts"], mega_decode_step=run["ticks"] * TICK * 2)
+    check_oracle(torch, pkg, oracle, prompts17, run["toks"],
+                 "LLaMA f32 serving (g = 4)", max_new=16)
+    del model, oracle
+    release(torch)
+
+    print("phase 18: LLaMA-13B width, training: 2 layers f32 vs the CPU at "
+          "batch 1 x 64, then a 4-layer bf16 TrainStep at batch 4 x seq "
+          f"{LLAMA_L} (full depth would need 13 B x 16 B = 208 GB of "
+          "weights and optimizer state: ZeRO over four cards, ROADMAP A12)",
+          flush=True)
+    train_parity(torch, pkg,
+                 build=lambda **kw: Llama(llama_depth_cut(cfg13, 2), **kw),
+                 shape=(1, 64), layers=2)
+    torch.cuda.empty_cache()
+    cfg = llama_depth_cut(cfg13, 4)
+    # random logits of variance H r^2 start the loss at ln V + H r^2 / 2
+    first = math.log(cfg.vocab_size) + \
+        cfg.hidden_size * cfg.initializer_range ** 2 / 2
+    step = train_step(torch, pkg, build=lambda: Llama(cfg, seed=0),
+                      batch=4, seq=LLAMA_L, layers=4, first_loss=first)
+    torch.cuda.empty_cache()
+    return step
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1963,8 +2269,10 @@ def main():
         from paddle_tpu_torch.kernels import flash_block as fb
         from paddle_tpu_torch.kernels import fused_ce as ce
         from paddle_tpu_torch.kernels import mega_decode as md
-        from paddle_tpu_torch.models import (GPTForCausalLM, generate,
-                                             gpt_125m)
+        from paddle_tpu_torch.models import (GPTForCausalLM,
+                                             LlamaForCausalLM, generate,
+                                             gpt_125m, llama_13b)
+        from paddle_tpu_torch.models import generation as gm
         from paddle_tpu_torch.optimizer import AdamW
     except ImportError as e:
         fail(f"cannot import paddle_tpu_torch (run from the repo root): {e}")
@@ -1973,6 +2281,7 @@ def main():
            "generate": generate,
            "Engine": ContinuousBatchingEngine, "Server": PredictorServer,
            "GPT": GPTForCausalLM, "gpt_125m": gpt_125m, "AdamW": AdamW,
+           "Llama": LlamaForCausalLM, "llama_13b": llama_13b,
            "TrainStep": TrainStep, "load": load_paddle_tpu_params}
     t_start = time.perf_counter()
 
@@ -2051,6 +2360,21 @@ def main():
     b1_errs, b1_rows = check_flash(torch, fa, flush)
     b2_errs, b2_rows = check_ce(torch, ce, flush)
     b5_errs, b5_rows = check_flash_block(torch, fb, flush)
+    print("  LLaMA-13B's shapes:", flush=True)
+    b4l_err, b4l_rows = check_mega_decode_llama(torch, md, flush, rng_pos)
+    kvpl_rows = check_kv_paged_write(
+        torch, np, cw, flush, rng_pos, NP=LLAMA_NP, nkv=LLAMA_HEADS,
+        hd=LLAMA_HD, L=LLAMA_L,
+        cases=[c for c in KV_PAGED_CASES if c[0] != "decode edges"],
+        kinds=(("bf16", "bf16"),),
+        timing=(("bf16", "decode", "bf16"), ("bf16", "admission", "bf16")))
+    b1l_errs, b1l_rows = check_flash(
+        torch, fa, flush, shape=(4, LLAMA_HEADS, LLAMA_L, LLAMA_HD),
+        cases=(("bfloat16", True, 0, 0),), timing=("bfloat16",))
+    b2l_errs, b2l_rows = check_ce(torch, ce, flush, V=LLAMA_V,
+                                  cases=[(8192, torch.bfloat16, None)],
+                                  timing=("bfloat16",))
+    check_sampling(torch, np, gm, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -2182,7 +2506,10 @@ def main():
           f"8's {ms8:.1f} ms/step", flush=True)
     torch.cuda.empty_cache()
 
-    print("phase 15: summary", flush=True)
+    llama = llama_serving(torch, pkg)
+    llama["train"] = llama_oracle_and_training(torch, pkg)
+
+    print("phase 19: summary", flush=True)
     main_b4 = b4_rows[("bf16", "serving-like pos")]
     main_b3 = b3_rows["int8 data"]
     main_b3p = b3p_rows[("bf16 pages", "decode")]
@@ -2271,6 +2598,38 @@ def main():
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]})
+    # LLaMA-13B's shapes: B4 and kv_paged_write of phases 15 and 16, B1
+    # bf16 at D 128 and B2 at V 32000 of phase 18's 4-layer step
+    counts18 = llama["train"][0]
+    b1l, b2l = b1l_errs[(torch.bfloat16, True, 0)], \
+        b2l_errs[(8192, torch.bfloat16, None)]
+    for name, src, replaces, n, err, row in (
+            ("mega_decode_step_llama13b", "mega_decode.cu",
+             "paddle_tpu/kernels/mega_decode.py:107", llama["b4"], b4l_err,
+             b4l_rows["serving-like pos"]),
+            ("kv_paged_write_llama13b", "cache_write.cu",
+             "paddle_tpu/kernels/cache_write.py:171", llama["kvp"], 0.0,
+             kvpl_rows[("bf16", "decode")]),
+            ("flash_attn_fwd_d128", "flash_attention_sm90.cu", b1_src,
+             counts18["flash_attn_fwd"], max(b1l["out"], b1l["lse"]),
+             b1l_rows[("bf16", "fwd")]),
+            ("flash_attn_bwd_d128", "flash_attention_sm90.cu", b1_src,
+             counts18["flash_attn_bwd"],
+             max(b1l["dq"], b1l["dk"], b1l["dv"]), b1l_rows[("bf16", "bwd")]),
+            ("ce_fwd_v32000", "fused_ce.cu",
+             "paddle_tpu/kernels/fused_ce.py:172", counts18["ce_fwd"],
+             max(b2l["per"], b2l["lse"]), b2l_rows[("bf16", "fwd")]),
+            ("ce_bwd_v32000", "fused_ce.cu",
+             "paddle_tpu/kernels/fused_ce.py:210", counts18["ce_bwd"],
+             b2l["dlogits"], b2l_rows[("bf16", "bwd")])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    serving_summary({15: llama["serve15"], 16: llama["serve16"]}, card)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -12,15 +12,17 @@ for the TPU are hand-written CUDA C++ for ``sm_90a`` here
 (``kernels/csrc``), built by ``nvcc`` at first use; on CPU tensors each
 kernel wrapper runs its plain PyTorch version instead.
 
-Covered today: serving — GPT (``models.gpt``), greedy ``generate``, slot
-and int8 slot KV caches, the continuous-batching engine and its HTTP
-server; training — the GPT step: ``flash_attention`` and
-``cross_entropy`` on their kernels, ``optimizer.AdamW`` / ``Adam`` (with
-f32 master weights), ``optimizer.lr`` schedulers,
-``nn.clip.ClipGradByGlobalNorm`` and ``jit.TrainStep``; sequence
-parallelism — ``distributed.init_mesh({"sp": n})`` (a single-controller
-mesh), ``ring_attention`` and ``ulysses_attention`` on the blockwise flash
-kernels, which GPT's attention takes under such a mesh.
+Covered today: serving — GPT (``models.gpt``) and Llama
+(``models.llama``), ``generate`` greedy or sampled, slot, int8 slot and
+paged KV caches, the continuous-batching engine (sampling, n-gram
+speculation) and its HTTP server; training — the GPT and Llama steps:
+``flash_attention`` and ``cross_entropy`` on their kernels,
+``optimizer.AdamW`` / ``Adam`` (with f32 master weights), ``optimizer.lr``
+schedulers, ``nn.clip.ClipGradByGlobalNorm`` and ``jit.TrainStep``;
+sequence parallelism — ``distributed.init_mesh({"sp": n})`` (a
+single-controller mesh), ``ring_attention`` and ``ulysses_attention`` on
+the blockwise flash kernels, which GPT's and Llama's attention take under
+such a mesh.
 """
 from .device import resolve_device
 

@@ -11,7 +11,7 @@ place. One engine thread runs the loop:
   slot's cache rows (int8 scales included) are zeroed in place and its
   prompt, right-padded to the nearest prefill bucket, is prefilled into
   them at position 0 — so a retired request's rows never leak into the
-  next one. Its first token is the argmax at ``P - 1``.
+  next one. Its first token is selected from the logits at ``P - 1``.
 - decode ticks: ``tick_tokens`` micro-steps for ALL slots; free and
   finished slots ride along with ``live`` False (their token held, their
   position not advancing), so every step has the same shapes. Tokens stay
@@ -24,9 +24,21 @@ place. One engine thread runs the loop:
 - retirement: a request ends on eos or its token budget; its future
   resolves to the int64 [P + max_new_tokens] array, eos-padded.
 
-Right-padded bucketed prefill is exact for greedy decoding: the padding
-rows a prompt writes at [P, bucket) are never attended by positions < P,
-and decode overwrites position p before the mask reaches it.
+Right-padded bucketed prefill is exact: the padding rows a prompt writes
+at [P, bucket) are never attended by positions < P, and decode overwrites
+position p before the mask reaches it.
+
+Sampling (``do_sample`` with ``temperature``, ``top_k``, ``top_p``, as
+paddle_tpu's engine takes them): every token is selected by
+``generation._select_token``, the argmax or a Gumbel-max draw from the
+filtered logits. A request's draws are keyed by its ``seed`` and the
+position alone, as paddle_tpu keys them (``fold_in(PRNGKey(seed), pos)``):
+the first token, at admission, with ``prng_key(seed)``, the token after
+position p with ``fold_in(prng_key(seed), p)``. So its tokens do not
+depend on its slot, the tick it lands in or the other requests, and equal
+``generate(..., seed=seed)`` for the same prompt. The keys are folded and
+the bits hashed on the device inside the micro-steps: the tick keeps its
+one host sync.
 
 Paged mode (``paged=True``): the cache is carved into ``page_size``-token
 pages shared by all slots (per-layer pools [num_pages, page_size, nkv,
@@ -55,7 +67,7 @@ its k+1 rows per slot as plain tensor code; paged verify through
 ``kv_paged_write`` (N·(k+1) rows a half per launch).
 
 Not ported yet (ROADMAP.md): the draft-model proposer, tensor
-parallelism, sampling, observability metrics, AOT warmup.
+parallelism, observability metrics, AOT warmup.
 
 Env knobs as paddle_tpu's: PADDLE_TPU_SERVE_SLOTS (default 8),
 PADDLE_TPU_SERVE_PREFILL_BUCKETS (comma list, default powers of two),
@@ -81,6 +93,7 @@ from ..device import resolve_device
 from ..framework.env import int_env
 from ..kernels.cache_write import kv_paged_write, kv_slot_write
 from ..kernels.mega_decode import mega_decode_step
+from ..models.generation import _select_token, fold_in, prng_key
 from .paging import PageAllocator, PrefixTrie, pages_needed
 from .speculative import NGramProposer, resolve_speculative, verify_step
 
@@ -168,6 +181,7 @@ class _Request:
     prompt: np.ndarray           # [P] int64
     max_new_tokens: int
     eos_token_id: Optional[int]
+    seed: int = 0                # sampling key: prng_key(seed)
     future: Future = field(default_factory=Future)
     rid: str = ""
     cancelled: bool = False      # cancel() flagged; retired at the next
@@ -197,10 +211,12 @@ class _Slot:
 
 
 class ContinuousBatchingEngine:
-    """Serve concurrent mixed-length greedy generate requests through one
-    slot cache or paged pool (see the module docstring). Greedy outputs
-    are token-identical to sequential ``generate()`` per request, in every
-    mode.
+    """Serve concurrent mixed-length generate requests, greedy or
+    sampled, through one slot cache or paged pool (see the module
+    docstring). Outputs are token-identical to sequential ``generate()``
+    per request (with the request's seed when sampling), in every mode.
+    Speculative decoding is greedy-only: with ``do_sample`` it raises
+    ``ValueError``, as paddle_tpu's engine does.
 
     ``model`` must already live on ``device`` — the card when ``device``
     is omitted (raises without one); ``device="cpu"`` for the CPU, where
@@ -223,14 +239,19 @@ class ContinuousBatchingEngine:
                  spec_ngram: Optional[int] = None, draft_model=None,
                  tp: Optional[int] = None, mesh=None,
                  comm_precision: Optional[str] = None, device=None):
-        if do_sample or temperature != 1.0 or top_k != 0 or top_p != 1.0:
-            _not_ported("sampling (do_sample, temperature, top_k, top_p)")
         if draft_model is not None:
             _not_ported("draft-model speculation (draft_model=)")
         if ((tp is not None and tp != 1) or mesh is not None
                 or comm_precision is not None):
             _not_ported("tensor parallelism (tp=/mesh=/comm_precision=)")
         self._spec = resolve_speculative(speculative, spec_k, spec_ngram)
+        if self._spec is not None and do_sample:
+            raise ValueError(
+                "speculative decoding is greedy-only (acceptance is exact "
+                "token equality against the target argmax); do_sample "
+                "engines must run plain decode")
+        self._sampling = (bool(do_sample), float(temperature), int(top_k),
+                          float(top_p))
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine device "
@@ -327,12 +348,13 @@ class ContinuousBatchingEngine:
 
     # -- public API ------------------------------------------------------
     def submit(self, input_ids, max_new_tokens: int = 32,
-               eos_token_id: Optional[int] = None,
+               eos_token_id: Optional[int] = None, seed: int = 0,
                request_id: Optional[str] = None) -> Future:
         """Queue one request; returns a Future resolving to an int64
         [prompt_len + max_new_tokens] array, eos-padded after finish —
-        one row of ``generate()``. ``request_id`` is the handle
-        ``cancel`` takes."""
+        one row of ``generate()``. ``seed`` keys a sampling engine's draws
+        for this request (ignored when greedy). ``request_id`` is the
+        handle ``cancel`` takes."""
         prompt = np.asarray(input_ids).astype(np.int64).reshape(-1)
         P = prompt.shape[0]
         if P < 1:
@@ -358,7 +380,7 @@ class ContinuousBatchingEngine:
                 f"engine cache length {self.max_len}")
         req = _Request(prompt, int(max_new_tokens),
                        None if eos_token_id is None else int(eos_token_id),
-                       rid=str(request_id) if request_id else "")
+                       int(seed), rid=str(request_id) if request_id else "")
         with self._cv:
             if self._broken is not None:
                 raise RuntimeError("engine is broken") from self._broken
@@ -391,11 +413,11 @@ class ContinuousBatchingEngine:
         return need > self._allocator.free_pages + self._trie.reclaimable()
 
     def generate(self, input_ids, max_new_tokens: int = 32,
-                 eos_token_id: Optional[int] = None,
+                 eos_token_id: Optional[int] = None, seed: int = 0,
                  timeout: Optional[float] = None) -> np.ndarray:
         """Blocking convenience wrapper over submit()."""
-        return self.submit(input_ids, max_new_tokens,
-                           eos_token_id).result(timeout)
+        return self.submit(input_ids, max_new_tokens, eos_token_id,
+                           seed).result(timeout)
 
     def cancel(self, request_id: Optional[str]) -> bool:
         """Cancel the request carrying ``request_id``. A queued request
@@ -611,7 +633,7 @@ class ContinuousBatchingEngine:
                               else (leaf,)):
                         t.zero_()
             logits, _ = self.model(self._padded_ids(req.prompt), view, 0)
-            tok0 = int(torch.argmax(logits[0, P - 1]))   # host sync
+            tok0 = self._first_token(logits[:, P - 1], req)
         slot = self._slots[b]
         slot.req = req
         slot.pos = P
@@ -623,6 +645,13 @@ class ContinuousBatchingEngine:
         if slot.remaining <= 0 or not slot.alive:
             self._retire(b)
         return True
+
+    def _first_token(self, last, req: _Request) -> int:
+        """The admission's token from its last prompt position's logits
+        ``[1, V]``, drawn with the request's own key ``prng_key(seed)``
+        (decode draws fold the position in); one host sync."""
+        key = prng_key(req.seed, self.device) if self._sampling[0] else None
+        return int(_select_token(last, key, *self._sampling)[0])
 
     def _copy_page(self, src: int, dst: int):
         """Copy-on-write: duplicate physical page ``src`` into ``dst`` in
@@ -681,7 +710,7 @@ class ContinuousBatchingEngine:
             logits, _ = self.model(self._padded_ids(suffix), caches, M)
         finally:
             _strip_page_meta(self._caches)
-        tok0 = int(torch.argmax(logits[0, S - 1]))     # host sync
+        tok0 = self._first_token(logits[:, S - 1], req)
         self._slots[b].pages = pages
         if self.prefix_cache:
             # freshly computed complete pages become shareable; cached
@@ -809,6 +838,15 @@ class ContinuousBatchingEngine:
         eos_d = torch.from_numpy(eos).to(dev)
         bt_d = (torch.from_numpy(self._block_tables).to(dev) if self.paged
                 else None)
+        do_sample = self._sampling[0]
+        if do_sample:
+            # each busy slot's request key; the position is folded in on
+            # the device, micro-step by micro-step
+            keys = np.zeros((self.slots, 2), np.int64)
+            for i, s in enumerate(self._slots):
+                if not s.free:
+                    keys[i] = prng_key(s.req.seed).numpy()
+            keys_d = torch.from_numpy(keys).to(dev)
         zero = torch.zeros_like(tok_d)
         emitted = []
         for _ in range(self.tick_tokens):
@@ -825,7 +863,9 @@ class ContinuousBatchingEngine:
             finally:
                 if self.paged:
                     _strip_page_meta(self._caches)
-            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            sub = fold_in(keys_d, pos_d) if do_sample else None
+            nxt = _select_token(logits[:, -1, :], sub,
+                                *self._sampling).to(torch.int32)
             nxt = torch.where(live_d, nxt, zero)
             emitted.append(nxt)
             pos_d = pos_d + live_d.to(torch.int32)

@@ -9,7 +9,9 @@ Endpoints:
                      the page-pool and prefix-cache fields (paged engines)
                      and the speculative counters (speculative engines)
   POST /generate  -> {"input_ids": [...], "max_new_tokens": n,
-                      "eos_token_id": opt} -> {"tokens": [...],
+                      "eos_token_id": opt, "seed": opt (a sampling
+                      engine's key for the request, default 0)} ->
+                     {"tokens": [...],
                       "prompt_len": P, "new_tokens": n,
                       "tokens_generated": k}
   POST /prewarm   -> {"input_ids": [...]} -> {"prewarmed": paged,
@@ -164,7 +166,8 @@ class PredictorServer:
                          if max_new_tokens is None else max_new_tokens)
                     return server.engine.submit(
                         payload["input_ids"], n,
-                        payload.get("eos_token_id"), request_id=rid)
+                        payload.get("eos_token_id"),
+                        int(payload.get("seed", 0)), request_id=rid)
                 except EngineOverloaded as e:
                     self._send(503, shed_body(e))
                 except (ValueError, KeyError, TypeError) as e:

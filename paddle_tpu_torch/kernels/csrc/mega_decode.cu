@@ -8,7 +8,17 @@
 //   kc[b, pos[b]] = k[b], vc[b, pos[b]] = v[b] (cast to the cache type),
 //             only when 0 <= pos[b] < L — nothing is written otherwise.
 // GQA: the g = nh / nkv query heads of one kv head share its cache rows;
-// the cache is never repeated.
+// the cache is never repeated. Any g >= 1: a block takes G <= 8 of them (G
+// the largest divisor of g up to 8, the template's instantiations 1-8), and
+// a grid axis of nsub = g / G sub-groups covers the rest within the same
+// launch. Each sub-group has its own partials and its own ticket, so its
+// last block folds only its own G heads; sub-group 0's writes the new row.
+// The blocks of the sub-groups of one (b, kv head, chunk) read the same
+// cache rows, so for g > 8 the cache is read nsub times (from L2 where the
+// blocks run together). The accumulators acc[G][hd / lanes a row] and q
+// take most registers: at G = 8 a thread holds 64 of each at hd = 128
+// (ptxas: 210-230 registers, no spill), so a block of G = 5..8 heads runs
+// fewer blocks an SM than G <= 4 (72-128 registers).
 //
 // What bounds it on this card: bytes. An S=1 step reads each cache row once
 // and does 4 flops per cached element (q.k and p.v), about 1 flop per byte
@@ -17,9 +27,10 @@
 // 2 * sum_b min(pos[b], L) * nkv * hd * sizeof(cache), over 3.35 TB/s.
 //
 // Design, against what holds a one-block-per-(b, kv head) kernel back:
-// - The grid is (b * nkv + kv head, chunk of L). The wrapper picks the chunk
-//   length from L, B, nkv and the SM count alone (it never reads pos, which
-//   lives on the card), so that a full cache fills every SM several times.
+// - The grid is ((b * nkv + kv head) * nsub + sub-group, chunk of L). The
+//   wrapper picks the chunk length from L, B, nkv * nsub and the SM count
+//   alone (it never reads pos, which lives on the card), so that a full
+//   cache fills every SM several times.
 //   A block whose chunk starts at or past min(max(pos[b], 0), L) reads and
 //   writes nothing; it only counts itself (below).
 // - Wide loads: a lane loads VB bytes of a row at once (16, or 8, 4, 2 when
@@ -144,18 +155,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Workspace, per (b * nkv + h, chunk) partial: ws[part * 2G + j] = m_j,
-// ws[part * 2G + G + j] = s_j (the first B * nkv * nchunks * 2G floats),
-// then acc[(part * G + j) * hd + d]. counters: one int per (b, h), 0
-// between launches.
+// Workspace, per ((b * nkv + h) * nsub + sub-group, chunk) partial:
+// ws[part * 2G + j] = m_j, ws[part * 2G + G + j] = s_j (the first
+// B * nkv * nsub * nchunks * 2G floats), then acc[(part * G + j) * hd + d].
+// counters: one int per (b, h, sub-group), 0 between launches.
 template <typename TC, int G, int VB>
 __global__ void __launch_bounds__(kThreads)
     mega_decode_kernel(const void* __restrict__ q, const void* __restrict__ kn,
                        const void* __restrict__ vn, TC* kc, TC* vc,
                        const int* __restrict__ pos, void* __restrict__ ctx,
                        float* __restrict__ ws, int* __restrict__ counters,
-                       int L, int nkv, int hd, int chunk, float scale,
-                       int q_bf16) {
+                       int L, int nkv, int nsub, int hd, int chunk,
+                       float scale, int q_bf16) {
   constexpr int VEC = VB / (int)sizeof(TC);  // elements per load
   constexpr int MAXV = kMaxPerLane / VEC;    // loads per lane per row, most
   constexpr int WORDS = VB >= 4 ? VB / 4 : 1;
@@ -164,7 +175,9 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int U0 = kRawRegs / (2 * MAXV * WORDS);
   constexpr int U = G <= 2 ? U0 : (2 * U0 / G > 0 ? 2 * U0 / G : 1);
   const int nchunks = gridDim.y;
-  const int bh = blockIdx.x;
+  const int bhs = blockIdx.x;               // (b * nkv + h) * nsub + sg
+  const int bh = bhs / nsub;
+  const int sg = bhs - bh * nsub;
   const int b = bh / nkv;
   const int h = bh - b * nkv;
   const int c = blockIdx.y;
@@ -177,10 +190,11 @@ __global__ void __launch_bounds__(kThreads)
   const int li = lane & (lpr - 1);
   const int nslots = kWarps * (32 / lpr);    // rows the block reads at once
   const int slot = warp * (32 / lpr) + lane / lpr;
-  const int nh = nkv * G;
-  const size_t q_row0 = (size_t)b * nh + (size_t)h * G;  // first q head
+  const int nh = nkv * G * nsub;
+  // first q head of the block's sub-group
+  const size_t q_row0 = (size_t)b * nh + ((size_t)h * nsub + sg) * G;
   const size_t row_new = ((size_t)b * nkv + h) * hd;
-  const size_t part = (size_t)bh * nchunks + c;
+  const size_t part = (size_t)bhs * nchunks + c;
   float* ws_acc = ws + (size_t)gridDim.x * nchunks * 2 * G;
 
   // shared: the new k and v rows [hd] each (f32 of their incoming values),
@@ -347,14 +361,14 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // every block of (b, h) takes a ticket; the last one merges. Only a
+  // every block of (b, h, sg) takes a ticket; the last one merges. Only a
   // block that wrote a partial fences: an empty one has nothing to publish
   if (r0 < r1) __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
-    const int prev = atomicAdd(&counters[bh], 1);
+    const int prev = atomicAdd(&counters[bhs], 1);
     s_last = prev == nchunks - 1;
-    if (s_last) counters[bh] = 0;  // every block has counted: ready again
+    if (s_last) counters[bhs] = 0;  // every block has counted: ready again
   }
   __syncthreads();
   if (!s_last) return;
@@ -383,7 +397,7 @@ __global__ void __launch_bounds__(kThreads)
   // one pass over the chunks that hold rows, starting from the new row
   // (weight 1 against its own logit); 4 chunks' loads in flight at once
   const int n_act = (n_old + chunk - 1) / chunk;
-  const size_t p0 = (size_t)bh * nchunks;
+  const size_t p0 = (size_t)bhs * nchunks;
   for (int idx = threadIdx.x; idx < G * hd; idx += kThreads) {
     const int j = idx / hd;
     const int d = idx - j * hd;
@@ -409,7 +423,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     st_f32(ctx, (q_row0 + j) * hd + d, num / den, q_bf16);
   }
-  if (p >= 0 && p < L) {
+  if (sg == 0 && p >= 0 && p < L) {  // one sub-group writes the new row
     const size_t dst = ((size_t)b * L + p) * nkv * hd + (size_t)h * hd;
     for (int d = threadIdx.x; d < hd; d += kThreads) {
       kc[dst + d] = from_f32<TC>(s_kn[d]);
@@ -425,7 +439,7 @@ struct Args {
   void* ctx;
   float* ws;
   int* counters;
-  int B, L, nkv, hd, chunk, nchunks, q_bf16;
+  int B, L, nkv, nsub, hd, chunk, nchunks, q_bf16;
   float scale;
   cudaStream_t stream;
 };
@@ -440,9 +454,10 @@ cudaError_t launch_vb(const Args& a) {
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<dim3(a.B * a.nkv, a.nchunks), kThreads, smem, a.stream>>>(
+  kern<<<dim3(a.B * a.nkv * a.nsub, a.nchunks), kThreads, smem, a.stream>>>(
       a.q, a.k, a.v, static_cast<TC*>(a.kc), static_cast<TC*>(a.vc), a.pos,
-      a.ctx, a.ws, a.counters, a.L, a.nkv, a.hd, a.chunk, a.scale, a.q_bf16);
+      a.ctx, a.ws, a.counters, a.L, a.nkv, a.nsub, a.hd, a.chunk, a.scale,
+      a.q_bf16);
   return cudaGetLastError();
 }
 
@@ -464,7 +479,11 @@ cudaError_t launch_typed(const Args& a, int g, int vec_bytes) {
   switch (g) {
     case 1: return launch_g<TC, 1>(a, vec_bytes);
     case 2: return launch_g<TC, 2>(a, vec_bytes);
+    case 3: return launch_g<TC, 3>(a, vec_bytes);
     case 4: return launch_g<TC, 4>(a, vec_bytes);
+    case 5: return launch_g<TC, 5>(a, vec_bytes);
+    case 6: return launch_g<TC, 6>(a, vec_bytes);
+    case 7: return launch_g<TC, 7>(a, vec_bytes);
     case 8: return launch_g<TC, 8>(a, vec_bytes);
     default: return cudaErrorInvalidValue;
   }
@@ -472,28 +491,31 @@ cudaError_t launch_typed(const Args& a, int g, int vec_bytes) {
 
 }  // namespace
 
-// q [B,1,nkv*g,hd], k/v [B,1,nkv,hd] (f32 or bf16, q_bf16); kc/vc
+// q [B,1,nkv*g*nsub,hd], k/v [B,1,nkv,hd] (f32 or bf16, q_bf16); kc/vc
 // [B,L,nkv,hd] (f32 or bf16, cache_bf16), all contiguous; pos [B] int32;
-// ctx [B,1,nkv*g,hd] at q's type. ws: f32, B*nkv*nchunks*g*(hd+2) floats;
-// counters: B*nkv ints, 0 before the first launch (each launch leaves
-// them 0). Chunks of `chunk` rows, nchunks of them, cover [0, L) once.
+// ctx [B,1,nkv*g*nsub,hd] at q's type; g (the heads a block takes) in
+// 1..8, nsub >= 1 sub-groups of g heads per kv head. ws: f32,
+// B*nkv*nsub*nchunks*g*(hd+2) floats; counters: B*nkv*nsub ints, 0 before
+// the first launch (each launch leaves them 0). Chunks of `chunk` rows,
+// nchunks of them, cover [0, L) once.
 // vec_bytes: bytes a lane loads at once, dividing hd * sizeof(cache) and
 // the alignment of kc and vc. Returns the cudaError_t of the launch.
 extern "C" int mega_decode_launch(const void* q, const void* k, const void* v,
                                   void* kc, void* vc, const void* pos,
                                   void* ctx, void* ws, void* counters, int B,
-                                  int L, int nkv, int g, int hd, int chunk,
-                                  int nchunks, int vec_bytes, int q_bf16,
-                                  int cache_bf16, float scale, void* stream) {
+                                  int L, int nkv, int g, int nsub, int hd,
+                                  int chunk, int nchunks, int vec_bytes,
+                                  int q_bf16, int cache_bf16, float scale,
+                                  void* stream) {
   const int elem = cache_bf16 ? 2 : 4;
   if (hd < 1 || hd > 32 * kMaxPerLane || B < 1 || L < 1 || nkv < 1 ||
-      chunk < 1 || nchunks < 1 ||
+      g < 1 || g > 8 || nsub < 1 || chunk < 1 || nchunks < 1 ||
       (long long)chunk * nchunks < L || (long long)chunk * (nchunks - 1) >= L ||
       vec_bytes < elem || vec_bytes > 16 || (hd * elem) % vec_bytes)
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, kc, vc, static_cast<const int*>(pos), ctx,
-         static_cast<float*>(ws), static_cast<int*>(counters), B, L, nkv, hd,
-         chunk, nchunks, q_bf16, scale, static_cast<cudaStream_t>(stream)};
+         static_cast<float*>(ws), static_cast<int*>(counters), B, L, nkv, nsub,
+         hd, chunk, nchunks, q_bf16, scale, static_cast<cudaStream_t>(stream)};
   return (int)(cache_bf16 ? launch_typed<__nv_bfloat16>(a, g, vec_bytes)
                           : launch_typed<float>(a, g, vec_bytes));
 }

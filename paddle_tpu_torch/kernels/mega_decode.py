@@ -3,13 +3,17 @@ one layer in one launch.
 
 Port of paddle_tpu/kernels/mega_decode.py:mega_decode_step (TPU Pallas;
 math in ``_attend``). The CUDA kernel is ``csrc/mega_decode.cu``: the grid
-is (batch row x kv head, chunk of the cache). Each block walks its chunk of
-the OLD cache under a strict ``l < pos[b]`` mask with an online softmax in
-f32 and writes a partial state to a workspace; the last block of each
-(batch row, kv head) merges the partials with the incoming k/v row at its
-incoming precision, writes ctx, then writes the new row at ``pos[b]`` when
-``0 <= pos[b] < L``. It is bound by the cache bytes it reads (see the
-source note there).
+is (batch row x kv head x sub-group, chunk of the cache). Each block walks
+its chunk of the OLD cache under a strict ``l < pos[b]`` mask with an
+online softmax in f32 and writes a partial state to a workspace; the last
+block of each (batch row, kv head, sub-group) merges the partials with the
+incoming k/v row at its incoming precision and writes ctx, and sub-group
+0's writes the new row at ``pos[b]`` when ``0 <= pos[b] < L``. It is
+bound by the cache bytes it reads (see the source note there).
+
+GQA takes any group count g = nh / nkv, as paddle_tpu does: a block
+holds ``G <= 8`` query heads of its kv head (``sub_groups``), and g above 8
+runs ``g / G`` sub-groups of them as a grid axis of the same launch.
 
 ``plan_chunks`` picks the chunk length from the shape and the SM count
 alone, never from ``pos`` (reading it would sync the host with the card).
@@ -29,10 +33,13 @@ import torch
 from . import (_build, check_launch, common_device, ptr, require_contiguous,
                stream_ptr)
 
-__all__ = ["mega_decode_step", "mega_decode_step_plain", "plan_chunks"]
+__all__ = ["mega_decode_step", "mega_decode_step_plain", "plan_chunks",
+           "sub_groups"]
 
 _NEG_INF = -1e30
-_GROUPS = (1, 2, 4, 8)
+# query heads a block takes at most: the kernel's template is instantiated
+# for G = 1..8 (its accumulators are acc[G][hd] a row group)
+_MAX_BLOCK_GROUP = 8
 _MAX_HEAD_DIM = 256
 # chunks are a multiple of this many rows (a block reads 16-64 rows of a
 # head in one batch of loads); at most this many chunks (the merge folds
@@ -45,7 +52,7 @@ _BLOCKS_PER_SM = 8
 _SIGNATURES = {"mega_decode_launch": (ctypes.c_int, [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p] + [ctypes.c_int] * 10 + [ctypes.c_float,
+    ctypes.c_void_p] + [ctypes.c_int] * 11 + [ctypes.c_float,
                                               ctypes.c_void_p])}
 _workspaces: dict = {}
 
@@ -69,9 +76,21 @@ def plan_chunks(B: int, nkv: int, L: int, sm_count: int) -> tuple:
     return chunk, -(-L // chunk)
 
 
+def sub_groups(g: int) -> tuple:
+    """(G, nsub): the g query heads of a kv head as ``nsub`` sub-groups
+    of ``G`` heads, G the largest divisor of g up to 8 (16 -> (8, 2), 12 ->
+    (6, 2), 5 -> (5, 1), 11 -> (1, 11))."""
+    if g < 1:
+        raise ValueError(f"sub_groups: g={g}")
+    G = next(d for d in range(min(g, _MAX_BLOCK_GROUP), 0, -1) if g % d == 0)
+    return G, g // G
+
+
 def workspace_floats(B: int, nkv: int, nchunks: int, g: int,
                      hd: int) -> int:
-    """f32 workspace of one launch: (m, s) and acc[g][hd] per partial."""
+    """f32 workspace of one launch: (m, s) and acc[G][hd] per partial of
+    each of the g / G sub-groups, so g * (hd + 2) per (row, kv head,
+    chunk) whatever the split."""
     return B * nkv * nchunks * g * (hd + 2)
 
 
@@ -126,10 +145,11 @@ def mega_decode_step(q, k, v, kc, vc, pos):
     """One-launch S=1 decode layer step; see the module docstring.
 
     q [B,1,nh,hd] and k/v [B,1,nkv,hd] f32 or bf16 (one dtype); kc/vc
-    [B,L,nkv,hd] f32 or bf16 (one dtype); pos [B] int32; nh/nkv in
-    (1, 2, 4, 8); hd <= 256. All contiguous, all on one device. On CUDA
-    tensors launches the kernel (counted in ``mega_decode_step.launches``);
-    on CPU tensors runs ``mega_decode_step_plain``. Returns
+    [B,L,nkv,hd] f32 or bf16 (one dtype); pos [B] int32; nh a multiple
+    of nkv (any group count); hd <= 256. All contiguous, all on one
+    device. On CUDA tensors launches the kernel (counted in
+    ``mega_decode_step.launches``); on CPU tensors runs
+    ``mega_decode_step_plain``. Returns
     (ctx [B,1,nh,hd] at q's dtype, kc, vc) with kc/vc updated in place.
     """
     dev = common_device("mega_decode_step", q, k, v, kc, vc, pos)
@@ -144,9 +164,10 @@ def mega_decode_step(q, k, v, kc, vc, pos):
             f"mega_decode_step: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
             f"v{tuple(v.shape)} kc{tuple(kc.shape)} vc{tuple(vc.shape)} "
             f"pos{tuple(pos.shape)}")
-    if nh % nkv or nh // nkv not in _GROUPS or hd > _MAX_HEAD_DIM:
+    if nh % nkv or hd > _MAX_HEAD_DIM:
         raise ValueError(f"mega_decode_step: nh={nh} nkv={nkv} hd={hd} "
-                         f"(need nh/nkv in {_GROUPS}, hd <= {_MAX_HEAD_DIM})")
+                         f"(need nh a multiple of nkv, hd <= "
+                         f"{_MAX_HEAD_DIM})")
     floats = (torch.float32, torch.bfloat16)
     if (q.dtype not in floats or k.dtype != q.dtype or v.dtype != q.dtype
             or kc.dtype not in floats or vc.dtype != kc.dtype
@@ -158,20 +179,22 @@ def mega_decode_step(q, k, v, kc, vc, pos):
                        pos=pos)
     lib = _build.load("mega_decode", _SIGNATURES)
     g = nh // nkv
-    chunk, nchunks = plan_chunks(B, nkv, L, _sm_count(dev.index))
+    G, nsub = sub_groups(g)
+    # the sub-groups are blocks of their own: the plan spreads them all
+    chunk, nchunks = plan_chunks(B, nkv * nsub, L, _sm_count(dev.index))
     stream = stream_ptr(dev)
     key = (dev.index, stream.value, B, nkv, nchunks, g, hd)
     if key not in _workspaces:
         _workspaces[key] = (
             torch.empty(workspace_floats(B, nkv, nchunks, g, hd),
                         dtype=torch.float32, device=dev),
-            torch.zeros(B * nkv, dtype=torch.int32, device=dev))
+            torch.zeros(B * nkv * nsub, dtype=torch.int32, device=dev))
     ws, counters = _workspaces[key]
     ctx = torch.empty_like(q)
     with torch.cuda.device(dev):
         rc = lib.mega_decode_launch(
             ptr(q), ptr(k), ptr(v), ptr(kc), ptr(vc), ptr(pos), ptr(ctx),
-            ptr(ws), ptr(counters), B, L, nkv, g, hd, chunk, nchunks,
+            ptr(ws), ptr(counters), B, L, nkv, G, nsub, hd, chunk, nchunks,
             _vec_bytes(hd, kc.element_size(), kc, vc),
             int(q.dtype == torch.bfloat16), int(kc.dtype == torch.bfloat16),
             _scale(hd), stream)

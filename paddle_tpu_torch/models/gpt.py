@@ -98,6 +98,19 @@ class LayerNorm(nn.Module):
         return F.layer_norm(x, self.weight, self.bias)
 
 
+class RMSNorm(nn.Module):
+    """paddle_tpu's ``nn.RMSNorm`` (Llama's norm): ``weight`` initialised
+    to ones, no bias."""
+
+    def __init__(self, hidden_size, epsilon=1e-6):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(hidden_size))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.epsilon)
+
+
 class Embedding(nn.Module):
     def __init__(self, num, dim):
         super().__init__()

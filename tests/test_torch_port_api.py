@@ -22,7 +22,6 @@ from paddle_tpu.models import generation as jgen
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
 from paddle_tpu_torch.models import generation as tgen
-from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.models.gpt import GPTConfig
 
 # both packages re-export a flash_attention function under the module's name
@@ -77,11 +76,3 @@ def test_attention_name_is_ignored():
     torch.testing.assert_close(
         tfa.scaled_dot_product_attention(q, k, v, is_causal=True,
                                          name="attn"), want, rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("kw", [{"temperature": 0.7}, {"top_k": 4},
-                                {"top_p": 0.9}, {"seed": 1}])
-def test_generate_sampling_knobs_not_ported(kw):
-    m = GPTForCausalLM(gpt_tiny(), device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.generate(m, np.arange(4), 2, **kw)

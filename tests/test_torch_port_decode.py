@@ -9,9 +9,12 @@ only on the card. What it computes on this CPU is checked two ways:
   rows (one rescale a batch), combined pairwise as the warp's xor
   shuffles combine them, then across warps, into one partial state per
   chunk; the last block's fold of the partials of the chunks that hold
-  rows into the new row's state. It is held to ``mega_decode_step_plain``
-  (the f32 formula of paddle_tpu's ``_attend``; the JAX kernel itself is
-  held to it in tests/test_torch_port_kernels.py).
+  rows into the new row's state. Above 8 query heads a kv head, each
+  sub-group of G heads (``md.sub_groups``) runs all of that on its own.
+  It is held to ``mega_decode_step_plain`` (the f32 formula of
+  paddle_tpu's ``_attend``; the JAX kernel itself is held to it in
+  tests/test_torch_port_kernels.py and, at g = 3, 5 and 16, in
+  tests/test_torch_port_llama.py).
 
 Tolerance: ctx atol 1e-6 in f32 (the same sums taken in another order
 over at most L = 192 rows of O(1) values); caches bit-exact; with no old
@@ -47,7 +50,7 @@ def rehearse(q, k, v, kc, vc, pos, chunk, rpw, U):
     ``rpw`` row groups per warp, ``U`` rows per group per batch. Returns
     ctx [B,1,nh,hd]."""
     B, L, nkv, hd = kc.shape
-    G = q.shape[2] // nkv
+    G, nsub = md.sub_groups(q.shape[2] // nkv)
     scale = np.float32(1.0 / np.sqrt(hd))
     nslots = WARPS * rpw
     nchunks = -(-L // chunk)
@@ -56,8 +59,9 @@ def rehearse(q, k, v, kc, vc, pos, chunk, rpw, U):
              np.zeros((G, hd), np.float32))
     for b in range(B):
         n_old = min(max(int(pos[b]), 0), L)
-        for h in range(nkv):
-            qh = q[b, 0, h * G:(h + 1) * G]                  # [G, hd]
+        for hs in range(nkv * nsub):      # (kv head, sub-group) blocks
+            h = hs // nsub
+            qh = q[b, 0, hs * G:(hs + 1) * G]                # [G, hd]
             partials = []
             for c in range(nchunks):
                 r0, r1 = c * chunk, min((c + 1) * chunk, n_old)
@@ -105,7 +109,7 @@ def rehearse(q, k, v, kc, vc, pos, chunk, rpw, U):
                 den = den * c1 + ps * c2
                 num = num * c1[:, None] + pa * c2[:, None]
                 M = M2
-            ctx[b, 0, h * G:(h + 1) * G] = num / den[:, None]
+            ctx[b, 0, hs * G:(hs + 1) * G] = num / den[:, None]
         if 0 <= pos[b] < L:
             kc[b, pos[b]] = k[b, 0]
             vc[b, pos[b]] = v[b, 0]
@@ -130,12 +134,36 @@ def test_plan_chunks_covers_the_cache_once(B, nkv, L, sms):
         assert B * nkv * n >= 2 * sms                 # the card twice over
 
 
+@pytest.mark.parametrize("g,want", [
+    (1, (1, 1)), (3, (3, 1)), (5, (5, 1)), (7, (7, 1)), (8, (8, 1)),
+    (12, (6, 2)), (16, (8, 2)), (11, (1, 11)), (40, (8, 5)),
+    (64, (8, 8))])
+def test_sub_groups_split_every_group_count(g, want):
+    """Every g >= 1 splits into sub-groups of at most 8 heads that cover
+    it exactly (MQA at 40 and 64 heads included)."""
+    G, nsub = md.sub_groups(g)
+    assert (G, nsub) == want and G * nsub == g and 1 <= G <= 8
+
+
+def test_c_entry_matches_signature_table():
+    """The ctypes table declares the C entry's parameter count."""
+    import re
+    from pathlib import Path
+    text = (Path(md.__file__).parent / "csrc" / "mega_decode.cu").read_text()
+    (params,) = re.findall(r'extern "C" int mega_decode_launch\(([^)]*)\)',
+                           text)
+    restype, argtypes = md._SIGNATURES["mega_decode_launch"]
+    assert len(argtypes) == params.count(",") + 1
+    for g in range(1, 9):                   # every G the wrapper may pass
+        assert f"case {g}: return launch_g<TC, {g}>" in text
+
+
 @pytest.mark.parametrize("rpw,u0", [(2, 4), (4, 8)])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 8, 16])
 def test_split_softmax_rehearsal_matches_plain(g, rpw, u0):
     """rpw 4, U 8: a bf16 cache at hd 64 (8 lanes a row, 16-byte loads);
-    rpw 2, U 4: f32 at hd 64. The kernel halves U at g = 4 and quarters
-    it at g = 8."""
+    rpw 2, U 4: f32 at hd 64. Above G = 2 the kernel takes U = 2 U0 / G
+    rows (at least 1); g = 16 runs as two sub-groups of 8."""
     nkv, L, hd = 2, 192, 64
     chunk, n = md.plan_chunks(8, nkv, L, 132)
     assert n == 3
@@ -150,7 +178,8 @@ def test_split_softmax_rehearsal_matches_plain(g, rpw, u0):
     want, _, _ = md.mega_decode_step_plain(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), tkc,
         tvc, torch.from_numpy(pos))
-    U = u0 if g <= 2 else max(2 * u0 // g, 1)
+    G = md.sub_groups(g)[0]
+    U = u0 if G <= 2 else max(2 * u0 // G, 1)
     got = rehearse(q, k, v, kc, vc, pos, chunk, rpw, U)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-6)

@@ -161,9 +161,7 @@ def test_overload_and_cancel(models):
 @pytest.mark.parametrize("kw,what", [
     ({"speculative": "draft"}, "draft"), ({"draft_model": object()}, "draft"),
     ({"tp": 2}, "tensor parallelism"),
-    ({"comm_precision": "int8"}, "tensor parallelism"),
-    ({"do_sample": True}, "sampling"), ({"temperature": 0.7}, "sampling"),
-    ({"top_k": 4}, "sampling"), ({"top_p": 0.9}, "sampling")])
+    ({"comm_precision": "int8"}, "tensor parallelism")])
 def test_unported_options_raise(models, kw, what):
     with pytest.raises(NotImplementedError, match=what):
         ContinuousBatchingEngine(models[1], device="cpu", **kw)

@@ -8,8 +8,9 @@
   pools), with the same ``tokens_drafted`` / ``tokens_accepted`` after
   every request (requests are served one at a time, so both engines see
   the same tick composition).
-- Greedy only: ``do_sample`` raises, as sampling is not ported; the
-  draft-model proposer is not ported and ``speculative="draft"`` raises.
+- Greedy only: ``do_sample`` with ``speculative=`` raises ValueError, as
+  paddle_tpu's engine does; the draft-model proposer is not ported and
+  ``speculative="draft"`` raises.
 """
 import json
 import time
@@ -209,8 +210,8 @@ def test_spec_healthz_and_generate_fields(models):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    ({"do_sample": True}, NotImplementedError, "sampling"),
-    ({"do_sample": True, "paged": True}, NotImplementedError, "sampling"),
+    ({"do_sample": True}, ValueError, "greedy-only"),
+    ({"do_sample": True, "paged": True}, ValueError, "greedy-only"),
     ({"speculative": "draft"}, NotImplementedError, "draft"),
     ({"speculative": "beam"}, ValueError, "beam")])
 def test_spec_options_raise(models, kw, exc, match):
