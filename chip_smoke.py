@@ -71,6 +71,14 @@ failure:
    and draw (``generation._select_token``) on the card against the CPU on
    64 rows of logits at V=32000, each knob alone and all together: the
    same tokens except where the CPU's perturbed top-2 margin is < 1e-4.
+   BERT/ERNIE's shapes (phases 19-21): B1 non-causal, bf16 at B=1, H=12,
+   S=128, D=64 (ERNIE serving; forward only, expected at the launch
+   floor: its bound is ~0.24 us) and at B=32 (forward and backward), f32
+   at B=2 (the oracle, 3xTF32, also against f64); B2 at N=32, V=2 (the
+   classifier) and at N=4096, V=30522 with a quarter of the rows at the
+   ignore index (an MLM batch of 32 x 128), bf16 and f32, beside
+   F.cross_entropy with the same ignored rows; each held and timed as
+   above.
 4. serving, bf16 cache: gpt_125m with seeded random weights behind
    ContinuousBatchingEngine(slots=8, max_len=1024, tick_tokens=8) and
    PredictorServer; 8 concurrent POST /generate. The mega-decode launch
@@ -159,15 +167,43 @@ failure:
    is 10.37); B1 4 launches a step each way, all on the tensor-core
    kernels, B2 1 + 1, no plain version; one step profiled. Depth is cut
    to 4: all 40 layers would need 208 GB of weights and optimizer state.
-19. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
+19. serving ERNIE-3.0-base: ErnieModel(ernie_3_base(), seed=0).bfloat16()
+   (12 layers, hidden 768, relu, V 30522, full width and depth) through
+   jit.save(input_spec=[InputSpec([None, 128], "int64")]) ->
+   PredictorServer(Config(path + ".pdmodel")); 8 concurrent POST /predict
+   at batch 1 and one at batch 8: both outputs (sequence, pooled) equal to
+   the eager model's on the card; B1 launches 12 x 9 requests, all on the
+   tensor-core kernels, no backward, no plain version. Then 50 sequential
+   batch-1 Predictor.runs timed copy_from_cpu to copy_to_cpu (p50, p99;
+   tools/bench_serving.py:bench_encoder's timing), one profiled (device
+   busy share); then ernie_3_base saved in f32 on the CPU, served by a
+   card predictor and held to the CPU predictor (LIM_F32).
+20. the BERT f32 oracle: bert_base() cut to 2 layers, dropout 0, f32 on
+   the card and a CPU copy (phase 7's rule) at batch 2 x 128: the
+   classifier's loss and every gradient without a mask (B1 non-causal on
+   the 3xTF32 kernels, 2 + 2), with a padding mask (the plain masked
+   attention, no B1), and BertForMaskedLM's at V 30522 with a quarter of
+   the labels ignored (B2 1 + 1).
+21. fine-tuning BERT-base: TrainStep(BertForSequenceClassification(
+   bert_base(), num_classes=2, seed=0).bfloat16(), loss_fn, AdamW(lr=5e-5,
+   multi_precision=True), n_inputs=3), full width and depth, dropout 0.1,
+   batch 32 x 128 with padding masks of lengths 32-128: one seed gives one
+   loss twice and another seed another, the first attention-dropout mask
+   keeps 0.9 +- 0.005; 1 warm step then 5: finite losses, the last below
+   the first; B2 1 + 1 a step, B1 and B5 never (the dropout branch is
+   plain code, as in paddle_tpu), no plain version; one step profiled.
+22. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
    wgmma kernels of phases 8 and 14, and the f32 3xTF32 ones of phases 7
    and 13, their launches from the tensor-core counts; B3 four times:
    kv_slot_write and kv_paged_write with their launches in phases 6 and
    9, and the per-plane fused_slot_write and fused_paged_write, which no
    serving path launches: 0; then LLaMA-13B's rows: B4 and kv_paged_write
    with their launches in phases 15 and 16, B1 at D 128 and B2 at V 32000
-   with phase 18's), the serving lines of phases 15 and 16, the card
-   line, and last the {"ok": true, "device": {...}} line.
+   with phase 18's; then BERT/ERNIE's rows: B1 non-causal bf16 with phase
+   19's launches, B1 f32 with phase 20's, B2 at V 2 with phase 21's and at
+   V 30522 with phase 20's), the serving lines of phases 15 and 16 and
+   phase 19's latency, the card line, and last the {"ok": true, "device":
+   {...}} line.
 
 ``python3 chip_smoke.py --sp-cards`` on a host with 4 or more cards runs
 phases 1 and 2 and then only phase 13's run with one shard on each of
@@ -180,10 +216,14 @@ earlier commit, it measures that commit's serving the same way.
 """
 import dataclasses
 import gc
+import importlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -204,6 +244,11 @@ SP = 4                              # the sequence-parallel degree
 # worth of 16-row pages
 LLAMA_L, LLAMA_LAYERS, LLAMA_HEADS, LLAMA_HD = 2048, 40, 40, 128
 LLAMA_V, LLAMA_NP = 32000, B_SLICE * 2048 // 16
+# BERT/ERNIE (paddle_tpu/models/bert.py): ERNIE-3.0-base served at the
+# reference bench's sequence (tools/bench_serving.py:bench_encoder), timed
+# over as many sequential runs; BERT-base fine-tuned at 32 x 128
+ERNIE_S, ERNIE_RUNS, FT_BATCH = 128, 50, 32
+BERT_V, BERT_H, BERT_HD = 30522, 12, 64
 
 
 def fail(msg):
@@ -1162,16 +1207,19 @@ B1_CASES = (("bfloat16", True, 0, 0), ("float32", True, 0, 0),
 
 
 def check_flash(torch, fa, flush, shape=(B_SLICE, NKV, L_SLICE, HD),
-                cases=B1_CASES, timing=("bfloat16", "float32")):
-    """Phase 3, B1: kernel vs plain at the training slice's shapes; bf16
-    (``LIM_BF16``) and f32 (``LIM_F32``) at D 64 take the tensor-core
-    kernels, both held to the plain versions (f32 products), the f32
-    ones first to the same formula in f64 (``hold_to_f64``). Beside each
-    case without offsets: SDPA's error against the f32 plain version (its
-    f32 path is the memory-efficient kernel, 3xTF32). Timed: each dtype's
-    kernels beside SDPA, the plain version and the bound of their route,
-    and for f32 the SIMT kernels at the same inputs through their C
-    entries (the design these replace) and their 67-TFLOP/s bound."""
+                cases=B1_CASES, timing=("bfloat16", "float32"),
+                timed_causal=True, kinds=("fwd", "bwd"), simt=True):
+    """Phase 3, B1: kernel vs plain at the training slice's shapes (or
+    ``shape`` and ``cases``); bf16 (``LIM_BF16``) and f32 (``LIM_F32``)
+    at D 64 take the tensor-core kernels, both held to the plain versions
+    (f32 products), the f32 ones first to the same formula in f64
+    (``hold_to_f64``). Beside each case without offsets: SDPA's error
+    against the f32 plain version (its f32 path is the memory-efficient
+    kernel, 3xTF32). Timed (``kinds`` of them, causal or not as
+    ``timed_causal``): each dtype's kernels beside SDPA, the plain version
+    and the bound of their route, and for f32 (with ``simt``) the SIMT
+    kernels at the same inputs through their C entries (the design these
+    replace) and their 67-TFLOP/s bound."""
     B, H, S, D = shape
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1230,44 +1278,48 @@ def check_flash(torch, fa, flush, shape=(B_SLICE, NKV, L_SLICE, HD),
     for dt in (getattr(torch, n) for n in timing):
         q, k, v, do = (torch.randn(B, H, S, D, device=dev,
                                    generator=gen).to(dt) for _ in range(4))
-        out, lse = fa.flash_attn_fwd(q, k, v, True, scale)
-        fwd_ms = timed(torch, lambda: fa.flash_attn_fwd(q, k, v, True, scale),
-                       flush)
-        bwd_ms = timed(torch, lambda: fa.flash_attn_bwd(
-            q, k, v, out, lse, do, True, scale), flush)
-        pfwd_ms = timed(torch, lambda: fa.flash_attn_fwd_plain(
-            q, k, v, True, scale), flush, iters=10)
-        pbwd_ms = timed(torch, lambda: fa.flash_attn_bwd_plain(
-            q, k, v, out, lse, do, True, scale), flush, iters=10)
+        c = timed_causal
+        out, lse = fa.flash_attn_fwd(q, k, v, c, scale)
         qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        lib_fwd = timed(torch, lambda: sdpa(q, k, v, is_causal=True), flush)
-        lib_both = timed(torch, lambda: torch.autograd.grad(
-            sdpa(qr, kr, vr, is_causal=True), (qr, kr, vr), do), flush)
-        simt = {"fwd": None, "bwd": None}
-        if dt == torch.float32:
-            simt["fwd"] = timed(torch, lambda: simt_flash_fwd(
-                torch, fa, q, k, v, True, scale), flush)
-            simt["bwd"] = timed(torch, lambda: simt_flash_bwd(
-                torch, fa, q, k, v, lse, do, True, scale, out=out), flush)
-        fb, fo, bb, bo = b1_cost(B, H, S, S, D, True, 0, 0,
-                                 q.element_size())
+        ms, plain, lib = {}, {}, {}
+        ms["fwd"] = timed(torch, lambda: fa.flash_attn_fwd(q, k, v, c, scale),
+                          flush)
+        plain["fwd"] = timed(torch, lambda: fa.flash_attn_fwd_plain(
+            q, k, v, c, scale), flush, iters=10)
+        lib["fwd"] = timed(torch, lambda: sdpa(q, k, v, is_causal=c), flush)
+        if "bwd" in kinds:
+            ms["bwd"] = timed(torch, lambda: fa.flash_attn_bwd(
+                q, k, v, out, lse, do, c, scale), flush)
+            plain["bwd"] = timed(torch, lambda: fa.flash_attn_bwd_plain(
+                q, k, v, out, lse, do, c, scale), flush, iters=10)
+            lib["bwd"] = timed(torch, lambda: torch.autograd.grad(
+                sdpa(qr, kr, vr, is_causal=c), (qr, kr, vr), do),
+                flush) - lib["fwd"]
+        simt_ms = {"fwd": None, "bwd": None}
+        if dt == torch.float32 and simt:
+            simt_ms["fwd"] = timed(torch, lambda: simt_flash_fwd(
+                torch, fa, q, k, v, c, scale), flush)
+            simt_ms["bwd"] = timed(torch, lambda: simt_flash_bwd(
+                torch, fa, q, k, v, lse, do, c, scale, out=out), flush)
+        fb, fo, bb, bo = b1_cost(B, H, S, S, D, c, 0, 0, q.element_size())
+        cost = {"fwd": (fb, fo), "bwd": (bb, bo)}
         peak = flash_peak(torch, fa, dt, D)
         label = "bf16" if dt == torch.bfloat16 else "f32"
-        for kind, ms, plain_ms, lib_ms, nb, ops in (
-                ("fwd", fwd_ms, pfwd_ms, lib_fwd, fb, fo),
-                ("bwd", bwd_ms, pbwd_ms, lib_both - lib_fwd, bb, bo)):
+        for kind in kinds:
+            nb, ops = cost[kind]
             bound_ms, by = bound(nb, ops, peak)
-            rows[(label, kind)] = dict(ms=ms, plain_ms=plain_ms,
-                                       library_ms=lib_ms, bound_ms=bound_ms,
-                                       bound_by=by)
-            extra = "" if simt[kind] is None else (
-                f", SIMT kernel {simt[kind]:.4f} ms (its bound "
+            rows[(label, kind)] = dict(
+                ms=ms[kind], plain_ms=plain[kind], library_ms=lib[kind],
+                bound_ms=bound_ms, bound_by=by)
+            extra = "" if simt_ms[kind] is None else (
+                f", SIMT kernel {simt_ms[kind]:.4f} ms (its bound "
                 f"{bound(nb, ops)[0]:.4f} ms)")
             print(f"  flash_attn_{kind} {label} B/H/S/D={B}/{H}/{S}/{D} "
-                  f"causal: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({by}: {nb} B, {ops} ops){extra}",
-                  flush=True)
+                  f"{'causal' if c else 'non-causal'}: kernel "
+                  f"{ms[kind]:.4f} ms, "
+                  f"plain {plain[kind]:.4f} ms, sdpa {lib[kind]:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)"
+                  f"{extra}", flush=True)
     return errs, rows
 
 
@@ -1456,12 +1508,31 @@ def ce_cost(N, V, elem):
     return fwd, 4 * N * V, bwd, 5 * N * V
 
 
+def ce_labels(torch, N, V, gen, vv=None, ignore_frac=0.0):
+    """(labels as B2 gets them, the upstream gradient g, labels as
+    ``F.cross_entropy`` gets them): a share ``ignore_frac`` of the rows at
+    the ignore index -100, which ``cross_entropy`` clamps to 0 for the
+    kernel and whose rows' g it zeroes; the other rows' g is the mean's
+    1 / (kept rows) as in the loss, or random where nothing is ignored."""
+    dev = torch.device("cuda")
+    lab = torch.randint(0, vv or V, (N,), device=dev, generator=gen)
+    if not ignore_frac:
+        g = torch.rand(N, device=dev, generator=gen)
+        return lab.to(torch.int32), g, lab
+    ign = torch.rand(N, device=dev, generator=gen) < ignore_frac
+    lib_lab = torch.where(ign, -100, lab)
+    g = torch.where(ign, 0.0, 1.0 / int((~ign).sum()))
+    return lib_lab.clamp(0, V - 1).to(torch.int32), g, lib_lab
+
+
 def check_ce(torch, ce, flush, V=50304, cases=None,
-             timing=("bfloat16", "float32")):
+             timing=("bfloat16", "float32"), timing_n=8192, ignore_frac=0.0):
     """Phase 3, B2: kernel vs plain at the training slice's shapes (the
     port runs all B*S = 8192 rows; 8184 = 8 x 1023 is the sliced count),
-    or at ``V`` and ``cases`` ((N, dtype, valid vocab)) given; timed at
-    N = 8192 in each dtype of ``timing``."""
+    or at ``V`` and ``cases`` ((N, dtype, valid vocab)) given, with a share
+    ``ignore_frac`` of the rows at the ignore index (``ce_labels``); timed
+    at N = ``timing_n`` in each dtype of ``timing``, beside
+    ``F.cross_entropy`` with the same ignored rows."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     cases = cases or [(8192, torch.bfloat16, None),
@@ -1471,10 +1542,9 @@ def check_ce(torch, ce, flush, V=50304, cases=None,
     errs = {}
     for N, dt, vv in cases:
         lg = (torch.randn(N, V, device=dev, generator=gen) * 3).to(dt)
-        lab = torch.randint(0, vv or V, (N,), device=dev, generator=gen,
-                            dtype=torch.int32)
-        lab[:4] = torch.tensor([0, 0, (vv or V) - 1, V - 1])
-        g = torch.rand(N, device=dev, generator=gen)
+        lab, g, _ = ce_labels(torch, N, V, gen, vv, ignore_frac)
+        if not ignore_frac:
+            lab[:4] = torch.tensor([0, 0, (vv or V) - 1, V - 1])
         per, lse = ce.ce_fwd(lg, lab, vv)
         per_p, lse_p = ce.ce_fwd_plain(lg, lab, vv)
         d = ce.ce_bwd(lg, lab, lse_p, g, vv)
@@ -1482,20 +1552,18 @@ def check_ce(torch, ce, flush, V=50304, cases=None,
         torch.cuda.synchronize()
         label = "bf16" if dt == torch.bfloat16 else "f32"
         errs[(N, dt, vv)] = check_all(
-            torch, f"fused_ce N={N} V={V} {dt} valid_vocab={vv}",
+            torch, f"fused_ce N={N} V={V} {dt} valid_vocab={vv}"
+            + (f" ignored {ignore_frac:g}" if ignore_frac else ""),
             (("per", per, per_p, LIM_LSE), ("lse", lse, lse_p, LIM_LSE),
              ("dlogits", d, d_p, LIM_DLOGITS[label])))
 
     rows = {}
     lib = torch.nn.functional.cross_entropy
     for dt in (getattr(torch, n) for n in timing):
-        N = 8192
+        N = timing_n
         lg = (torch.randn(N, V, device=dev, generator=gen) * 3).to(dt)
-        lab = torch.randint(0, V, (N,), device=dev, generator=gen,
-                            dtype=torch.int32)
-        g = torch.rand(N, device=dev, generator=gen)
+        lab, g, lab64 = ce_labels(torch, N, V, gen, None, ignore_frac)
         per, lse = ce.ce_fwd(lg, lab)
-        lab64 = lab.long()
         lgr = lg.detach().clone().requires_grad_()
         fwd_ms = timed(torch, lambda: ce.ce_fwd(lg, lab), flush)
         bwd_ms = timed(torch, lambda: ce.ce_bwd(lg, lab, lse, g), flush)
@@ -1516,10 +1584,12 @@ def check_ce(torch, ce, flush, V=50304, cases=None,
             rows[(label, kind)] = dict(ms=ms, plain_ms=plain_ms,
                                        library_ms=lib_ms, bound_ms=bound_ms,
                                        bound_by=by)
-            print(f"  ce_{kind} {label} N={N} V={V}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, F.cross_entropy {lib_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)",
-                  flush=True)
+            print(f"  ce_{kind} {label} N={N} V={V}"
+                  + (f" ({ignore_frac:g} of the rows ignored)"
+                     if ignore_frac else "")
+                  + f": kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"F.cross_entropy {lib_ms:.4f} ms, bound {bound_ms:.4f} "
+                  f"ms ({by}: {nb} B, {ops} ops)", flush=True)
     return errs, rows
 
 
@@ -1564,15 +1634,21 @@ def check_sampling(torch, np, gm, flush):
           f"T/k/p={SAMPLING_KNOBS[-1]}): {ms:.4f} ms", flush=True)
 
 
-def train_parity(torch, pkg, build=None, shape=(2, 128), layers=LAYERS):
+def train_parity(torch, pkg, build=None, shape=(2, 128), layers=LAYERS,
+                 loss_of=None, what="f32 parity"):
     """Phase 7, first part: one f32 loss + backward of gpt_125m on the
     card against a CPU copy of the same weights, batch 2 x seq 128; every
-    B1 launch on the 3xTF32 tensor-core kernels. Phase 18 the same with
-    ``build(device=..., seed=...)``'s model at ``shape``, B1 on the path
-    ``_tc_path`` gives its head size."""
+    B1 launch on the 3xTF32 tensor-core kernels, B2 one launch each way.
+    Phase 18 the same with ``build(device=..., seed=...)``'s model at
+    ``shape``, B1 on the path ``_tc_path`` gives its head size; phase 20
+    with BERT's models and ``loss_of(model, ids)``, ``layers`` B1 launches
+    each way (0 on its masked path)."""
     if build is None:
         def build(**kw):
             return pkg["GPT"](pkg["gpt_125m"](), **kw)
+    if loss_of is None:
+        def loss_of(m, x):
+            return m.loss_fn(m(x), x)
     model = build(seed=2).train()
     cpu = build(device="cpu", seed=3).train()
     pkg["load"](cpu, {n: p.detach().cpu().numpy()
@@ -1580,11 +1656,12 @@ def train_parity(torch, pkg, build=None, shape=(2, 128), layers=LAYERS):
     ids = pkg["np"].random.RandomState(1).randint(
         0, model.cfg.vocab_size, shape)
     losses, grads = [], []
-    fa = pkg["fa"]
+    fa, ce = pkg["fa"], pkg["ce"]
     reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
+    ce.ce_fwd.launches = ce.ce_bwd.launches = 0
     for m in (model, cpu):
         x = torch.from_numpy(ids).to(m.device)
-        loss = m.loss_fn(m(x), x)
+        loss = loss_of(m, x)
         loss.backward()
         losses.append(loss.item())
         grads.append({n: p.grad for n, p in m.named_parameters()})
@@ -1593,26 +1670,33 @@ def train_parity(torch, pkg, build=None, shape=(2, 128), layers=LAYERS):
     D = model.cfg.hidden_size // model.cfg.num_heads
     want = (layers, 0) if fa._tc_path(torch.float32, D) else (0, layers)
     if counts != {n: want for n in counts}:
-        fail(f"f32 parity: B1 (tensor-core, SIMT) launches {counts} != "
+        fail(f"{what}: B1 (tensor-core, SIMT) launches {counts} != "
              f"{want} each: f32 at D {D} must run the kernels _tc_path "
              "picks")
+    if (ce.ce_fwd.launches, ce.ce_bwd.launches) != (1, 1):
+        fail(f"{what}: B2 launches {ce.ce_fwd.launches} + "
+             f"{ce.ce_bwd.launches} != 1 + 1")
     rel = abs(losses[0] - losses[1]) / abs(losses[1])
     if not rel <= 1e-5:
-        fail(f"f32 parity: loss card {losses[0]} cpu {losses[1]} (rel {rel} "
+        fail(f"{what}: loss card {losses[0]} cpu {losses[1]} (rel {rel} "
              "> 1e-5)")
     worst, worst_name = 0.0, ""
     for n, g_cpu in grads[1].items():
+        if g_cpu is None or grads[0][n] is None:   # unused (MLM's pooler)
+            if (g_cpu is None) != (grads[0][n] is None):
+                fail(f"{what}: grad {n} is None on one side only")
+            continue
         d = (grads[0][n].cpu() - g_cpu).abs().max().item()
         r = d / max(g_cpu.abs().max().item(), 1e-30)
         if r > worst:
             worst, worst_name = r, n
     if not worst <= 1e-4:
-        fail(f"f32 parity: grad {worst_name} max|diff| / max|g| = {worst} "
+        fail(f"{what}: grad {worst_name} max|diff| / max|g| = {worst} "
              "> 1e-4")
-    print(f"  loss card {losses[0]:.6f} cpu {losses[1]:.6f} (rel {rel:.2e}, "
-          f"tol 1e-5); worst grad max|diff|/max|g| {worst:.2e} "
+    print(f"  {what}: loss card {losses[0]:.6f} cpu {losses[1]:.6f} (rel "
+          f"{rel:.2e}, tol 1e-5); worst grad max|diff|/max|g| {worst:.2e} "
           f"({worst_name}; tol 1e-4) over {len(grads[1])} parameters; B1 "
-          f"(tensor-core, SIMT) launches {counts}", flush=True)
+          f"(tensor-core, SIMT) launches {counts}, B2 1 + 1", flush=True)
     return counts
 
 
@@ -1916,7 +2000,8 @@ def serve(torch, pkg, model, cache_dtype, prompts, slots=8, profile=False,
     eng = pkg["Engine"](model, slots=slots, max_len=max_len,
                         cache_dtype=cache_dtype, tick_tokens=TICK,
                         **engine_kw)
-    srv = pkg["Server"](eng, host="127.0.0.1", port=0, deadline_s=600).start()
+    srv = pkg["Server"](engine=eng, host="127.0.0.1", port=0,
+                        deadline_s=600).start()
     what = f"{cache_dtype}{' paged' if eng.paged else ''}" + (
         " speculative" if engine_kw.get("speculative") else "")
     plain, restore = _count_plain([pkg["md"], pkg["cw"]])
@@ -2252,6 +2337,342 @@ def llama_oracle_and_training(torch, pkg):
     return step
 
 
+def post_predict(url, arrays):
+    """POST /predict with ``{"inputs": {"x0": ids}}`` for every array at
+    once; returns (status, body)s."""
+    results = [None] * len(arrays)
+
+    def one(i):
+        data = json.dumps({"inputs": {"x0": arrays[i].tolist()}}).encode()
+        req = urllib.request.Request(url + "/predict", data=data,
+                                     headers={"Content-Type":
+                                              "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                results[i] = (r.status, json.loads(r.read()))
+        except urllib.error.HTTPError as e:
+            results[i] = (e.code, json.loads(e.read() or b"{}"))
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(arrays))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+        if t.is_alive():
+            fail("a /predict request never returned")
+    return results
+
+
+def file_mb(path):
+    return os.path.getsize(path) / 1e6
+
+
+def ernie_serving(torch, pkg, card):
+    """Phase 19: ERNIE-3.0-base (12 layers, hidden 768, relu, V 30522, seeded
+    random weights, bf16) through jit.save -> Config -> PredictorServer's
+    /predict on the card: 8 concurrent requests at batch 1 x 128 and one at
+    batch 8, their outputs equal to the eager model's, B1 12 launches a
+    request, non-causal, on the tensor-core kernels, no backward and no
+    plain version; then 50 sequential batch-1 Predictor.runs (copy_from_cpu
+    to copy_to_cpu, as tools/bench_serving.py:bench_encoder times them), one
+    profiled; then the program saved in f32 on the CPU, served by a card
+    predictor and held to the CPU predictor on the same ids."""
+    np, fa, jit, Config = pkg["np"], pkg["fa"], pkg["jit"], pkg["Config"]
+    cfg = pkg["ernie_3_base"]()
+    print(f"phase 19: serving ERNIE-3.0-base ({cfg.num_layers} layers, "
+          f"hidden {cfg.hidden_size}, {cfg.hidden_act}, V {cfg.vocab_size}), "
+          f"bf16, jit.save -> Config -> PredictorServer /predict, seq "
+          f"{ERNIE_S}", flush=True)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ernie_")
+    try:
+        model = pkg["Ernie"](cfg, seed=0).bfloat16()
+        path = os.path.join(tmp, "ernie")
+        t0 = time.perf_counter()
+        jit.save(model, path, input_spec=[jit.InputSpec([None, ERNIE_S],
+                                                        "int64")])
+        print(f"  jit.save [None, {ERNIE_S}] int64 in "
+              f"{time.perf_counter() - t0:.1f} s: program "
+              f"{file_mb(path + '.pdmodel'):.2f} MB, params "
+              f"{file_mb(path + '.pdiparams'):.1f} MB", flush=True)
+        rng = np.random.default_rng(19)
+        batches = [rng.integers(0, cfg.vocab_size, (1, ERNIE_S))
+                   for _ in range(8)]
+        batches.append(rng.integers(0, cfg.vocab_size, (8, ERNIE_S)))
+        with torch.no_grad():
+            eager = [[t.float().cpu() for t in model(
+                torch.from_numpy(b).to(model.device))] for b in batches]
+        srv = pkg["Server"](Config(path + ".pdmodel"), host="127.0.0.1",
+                            port=0, deadline_s=600, max_queue=16).start()
+        plain, restore = _count_plain([fa, pkg["ce"], pkg["fb"]])
+        try:
+            url = f"http://{srv.host}:{srv.port}"
+            with urllib.request.urlopen(url + "/metadata", timeout=60) as r:
+                meta = json.loads(r.read())
+            if meta["inputs"] != ["x0"]:
+                fail(f"/metadata {meta}")
+            reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
+            t0 = time.perf_counter()
+            res = post_predict(url, batches)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {w.__name__: (w.tc_launches, w.simt_launches)
+                      for w in (fa.flash_attn_fwd, fa.flash_attn_bwd)}
+        finally:
+            restore()
+            srv.stop()
+        exact = 0
+        for i, ((code, body), want) in enumerate(zip(res, eager)):
+            if code != 200:
+                fail(f"/predict {i} -> {code} {body}")
+            for name, w in zip(("out0", "out1"), want):
+                o = body["outputs"][name]
+                got = torch.tensor(o["data"], dtype=torch.float32)
+                if o["shape"] != list(w.shape) or o["dtype"] != "float32":
+                    fail(f"/predict {i} {name}: {o['shape']} {o['dtype']}, "
+                         f"want {list(w.shape)} float32")
+                if not torch.equal(got, w):
+                    fail(f"/predict {i} {name} differs from the eager "
+                         f"model: max |err| {(got - w).abs().max().item()}")
+                exact += 1
+        n = len(batches)
+        want_counts = {"flash_attn_fwd": (cfg.num_layers * n, 0),
+                       "flash_attn_bwd": (0, 0)}
+        if counts != want_counts or any(plain.values()):
+            fail(f"ERNIE serving: B1 (tensor-core, SIMT) launches {counts} "
+                 f"!= {want_counts} ({cfg.num_layers} layers x {n} requests,"
+                 f" no backward), plain calls {plain}")
+        out["b1"] = cfg.num_layers * n
+        print(f"  {n} requests (8 x batch 1, 1 x batch 8) in {wall:.3f} s "
+              f"(JSON both ways included); {exact} outputs (sequence, "
+              f"pooled) equal to the eager model's on the card, bit for "
+              f"bit; B1 (tensor-core, SIMT) launches {counts}; plain calls "
+              f"{plain}", flush=True)
+        del model
+        release(torch)
+
+        pred = pkg["create_predictor"](Config(path + ".pdmodel"))
+        ids = rng.integers(0, cfg.vocab_size, (1, ERNIE_S))
+        h = pred.get_input_handle(pred.get_input_names()[0])
+
+        def run_once():
+            h.copy_from_cpu(ids)
+            pred.run()
+            pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
+        lat = []
+        for i in range(ERNIE_RUNS + 3):
+            t0 = time.perf_counter()
+            run_once()                    # copy_to_cpu: the host sync
+            if i >= 3:                    # warm-up dropped, as bench_encoder
+                lat.append((time.perf_counter() - t0) * 1e3)
+        lat.sort()
+        out["p50"] = lat[len(lat) // 2]
+        out["p99"] = lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+        prof, prof_wall = profile_window(torch, "one batch-1 Predictor.run",
+                                         run_once, top=6)
+        busy = sum(r[0] for r in prof)
+        out["busy_share"] = busy / prof_wall if prof else None
+        print(f"  ERNIE-3.0-base Predictor.run, batch 1 x {ERNIE_S}, bf16: "
+              f"p50 {out['p50']:.3f} ms, p99 {out['p99']:.3f} ms over "
+              f"{ERNIE_RUNS} sequential runs (host clock, copy_from_cpu to "
+              f"copy_to_cpu; min {lat[0]:.3f}, max {lat[-1]:.3f}); device "
+              + ("busy not measured" if not prof else
+                 f"busy {busy / 1e3:.3f} ms of the profiled run's "
+                 f"{prof_wall / 1e3:.3f} ms ({100 * busy / prof_wall:.1f} %), "
+                 f"{sum(r[1] for r in prof)} device kernels")
+              + f" ({card})", flush=True)
+        del pred
+        release(torch)
+
+        print("  a program saved in f32 on the CPU, served on the card and "
+              "held to the CPU predictor", flush=True)
+        cpu_model = pkg["Ernie"](cfg, device="cpu", seed=0)
+        path32 = os.path.join(tmp, "ernie_f32")
+        t0 = time.perf_counter()
+        jit.save(cpu_model, path32,
+                 input_spec=[jit.InputSpec([None, ERNIE_S], "int64")])
+        del cpu_model
+        cfg_cpu = Config(path32 + ".pdmodel")
+        cfg_cpu.disable_gpu()
+        ids2 = rng.integers(0, cfg.vocab_size, (2, ERNIE_S))
+        want = pkg["create_predictor"](cfg_cpu).run([ids2])
+        reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
+        card_pred = pkg["create_predictor"](Config(path32 + ".pdmodel"))
+        got = card_pred.run([ids2])
+        if card_pred.device.type != "cuda" or path_counts(
+                fa.flash_attn_fwd) != (cfg.num_layers, 0):
+            fail(f"f32 program on the card: device {card_pred.device}, B1 "
+                 f"(tensor-core, SIMT) {path_counts(fa.flash_attn_fwd)}")
+        check_all(torch, "f32 program saved on the CPU: card predictor vs "
+                  "CPU predictor", [
+                      ("sequence", torch.from_numpy(got[0]),
+                       torch.from_numpy(want[0]), LIM_F32),
+                      ("pooled", torch.from_numpy(got[1]),
+                       torch.from_numpy(want[1]), LIM_F32)])
+        print(f"  (saved and served in {time.perf_counter() - t0:.1f} s; B1 "
+              f"on the 3xTF32 kernels, {cfg.num_layers} launches)",
+              flush=True)
+        del card_pred
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    release(torch)
+    return out
+
+
+def bert_oracle(torch, pkg):
+    """Phase 20: BERT-base at full width cut to 2 layers, dropout 0, f32 on
+    the card against a CPU copy of its weights (phase 7's rule): the
+    classifier's loss and every gradient at batch 2 x 128 without a mask
+    (B1 non-causal on the 3xTF32 kernels, 2 launches each way), the same
+    with a padding mask (the plain masked attention, no B1), and the MLM
+    head's at V 30522 with a quarter of the labels ignored (B2 1 + 1).
+    Returns (the unmasked classifier's B1 counts, the MLM's B2 launches)."""
+    np = pkg["np"]
+    cfg = dataclasses.replace(pkg["bert_base"](), num_layers=2, dropout=0.0)
+    print("phase 20: BERT-base width, 2 layers, f32 on the card vs the CPU "
+          f"(loss and every gradient at batch 2 x {ERNIE_S})", flush=True)
+    pad = np.ones((2, ERNIE_S), np.int64)
+    pad[1, 70:] = 0
+
+    def cls_loss(masked):
+        def loss_of(m, x):
+            mask = torch.from_numpy(pad).to(m.device) if masked else None
+            labels = (x[:, 1] % 2).long()
+            return m.loss_fn(m(x, None, mask), labels)
+        return loss_of
+
+    def mlm_loss(m, x):
+        rs = np.random.RandomState(20)
+        ign = torch.from_numpy(rs.rand(*x.shape) < 0.25).to(m.device)
+        return m.loss_fn(m(x), torch.where(ign, -100, x))
+
+    def cls(**kw):
+        return pkg["BertCls"](cfg, **kw)
+    b1 = train_parity(torch, pkg, build=cls, shape=(2, ERNIE_S), layers=2,
+                      loss_of=cls_loss(False),
+                      what="classifier, no mask (B1 non-causal)")
+    train_parity(torch, pkg, build=cls, shape=(2, ERNIE_S), layers=0,
+                 loss_of=cls_loss(True),
+                 what="classifier, padding mask (plain masked attention)")
+    train_parity(torch, pkg, build=lambda **kw: pkg["BertMLM"](cfg, **kw),
+                 shape=(2, ERNIE_S), layers=2, loss_of=mlm_loss,
+                 what=f"MLM, V {cfg.vocab_size}, a quarter of the labels "
+                 "ignored")
+    release(torch)
+    return b1, (pkg["ce"].ce_fwd.launches, pkg["ce"].ce_bwd.launches)
+
+
+def finetune_batch(torch, np, vocab, device):
+    """Phase 21's batch: 32 x 128 ids with padding masks of lengths 32-128
+    (pad id 0), token types 1 from the middle of each row's tokens, labels
+    the parity of each row's second token (the input determines them)."""
+    rng = np.random.default_rng(21)
+    lens = rng.integers(32, ERNIE_S + 1, FT_BATCH)
+    cols = np.arange(ERNIE_S)[None, :]
+    mask = (cols < lens[:, None]).astype(np.int64)
+    ids = rng.integers(1, vocab, (FT_BATCH, ERNIE_S)) * mask
+    tt = (cols >= lens[:, None] // 2) * mask
+    labels = ids[:, 1] % 2
+    return [torch.from_numpy(a.astype(np.int64)).to(device)
+            for a in (ids, tt, mask, labels)]
+
+
+def bert_finetune(torch, pkg, steps=5):
+    """Phase 21: TrainStep(BertForSequenceClassification(bert_base(),
+    num_classes=2).bfloat16(), loss_fn, AdamW(lr=5e-5,
+    multi_precision=True), n_inputs=3) at full width and depth, dropout
+    0.1, batch 32 x 128 with padding masks: first the generator (one seed
+    gives one loss twice, another seed another; the keep rate of the first
+    attention-dropout mask within 0.9 +- 0.005), then 1 warm step and 5 on
+    the same batch: finite losses, the last below the first, B2 1 + 1 a
+    step, B1 and B5 never (the dropout branch is plain code, as in
+    paddle_tpu), no plain version; one step profiled. Returns (launch
+    counts, losses, ms a step)."""
+    np, fa, ce, fb = pkg["np"], pkg["fa"], pkg["ce"], pkg["fb"]
+    cfg = pkg["bert_base"]()
+    print(f"phase 21: fine-tuning BERT-base ({cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, dropout {cfg.dropout}), bf16, AdamW lr 5e-5 "
+          f"multi_precision, batch {FT_BATCH} x {ERNIE_S}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    model = pkg["BertCls"](cfg, num_classes=2, seed=0).bfloat16()
+    batch = finetune_batch(torch, np, cfg.vocab_size, model.device)
+    nnfa, keep_mask = pkg["nnfa"], pkg["nnfa"].keep_mask
+    rates = []
+
+    def recording(shape, p, device):
+        m = keep_mask(shape, p, device)
+        if not rates:
+            rates.append((tuple(shape), p, m.float().mean().item()))
+        return m
+    model.train()
+    firsts = []
+    nnfa.keep_mask = recording
+    try:
+        with torch.no_grad():
+            for s in (7, 7, 8):
+                pkg["seed"](s)
+                firsts.append(model.loss_fn(model(*batch[:3]),
+                                            batch[3]).item())
+    finally:
+        nnfa.keep_mask = keep_mask
+    shape, p, rate = rates[0]
+    if firsts[0] != firsts[1] or firsts[2] == firsts[0]:
+        fail(f"generator: seeds 7, 7, 8 gave losses {firsts}")
+    if not abs(rate - (1 - p)) <= 0.005:
+        fail(f"attention-dropout keep rate {rate} not within 0.005 of "
+             f"{1 - p}")
+    print(f"  generator: seed 7 twice gave loss {firsts[0]:.6f} both times, "
+          f"seed 8 {firsts[2]:.6f}; the first attention-dropout mask "
+          f"{list(shape)} kept {rate:.5f} (1 - p = {1 - p})", flush=True)
+
+    opt = pkg["AdamW"](learning_rate=5e-5, parameters=model.parameters(),
+                       multi_precision=True)
+    step = pkg["TrainStep"](model, model.loss_fn, opt, n_inputs=3)
+    pkg["seed"](0)
+    losses = [step(*batch)]                      # warm: allocations, cuBLAS
+    torch.cuda.synchronize()
+    plain, restore = _count_plain([fa, ce, fb])
+    attn = (fa.flash_attn_fwd, fa.flash_attn_bwd, fb.flash_block_fwd,
+            fb.flash_block_bwd)
+    reset_counts(*attn)
+    ce.ce_fwd.launches = ce.ce_bwd.launches = 0
+    try:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(step(*batch))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    counts = {w.__name__: w.launches for w in attn}
+    counts.update(ce_fwd=ce.ce_fwd.launches, ce_bwd=ce.ce_bwd.launches)
+    want = {w.__name__: 0 for w in attn}
+    want.update(ce_fwd=steps, ce_bwd=steps)
+    vals = [float(x) for x in losses]
+    if counts != want or any(plain.values()):
+        fail(f"fine-tuning launches {counts} != {want}, plain calls {plain}")
+    if not all(math.isfinite(x) for x in vals):
+        fail(f"fine-tuning: non-finite loss in {vals}")
+    if not vals[-1] < vals[0]:
+        fail(f"fine-tuning: the last loss is not below the first: {vals}")
+    ms = wall / steps * 1e3
+    prof, prof_wall = profile_window(torch, "fine-tuning step",
+                                     lambda: step(*batch))
+    busy = sum(r[0] for r in prof)
+    print(f"  losses {['%.4f' % x for x in vals]} (warm step first); "
+          f"{ms:.1f} ms/step, {FT_BATCH * ERNIE_S / (ms / 1e3):.0f} tokens/s "
+          f"(smoke number, {steps} steps); launches {counts}; plain calls "
+          f"{plain}; profiled step busy "
+          + ("not measured" if not prof else
+             f"{busy / 1e3:.1f} ms, {100 * busy / prof_wall:.1f} % of its "
+             f"wall, {sum(r[1] for r in prof)} device kernels")
+          + f"; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    del model, opt, step
+    release(torch)
+    return counts, vals, ms
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2260,8 +2681,11 @@ def main():
         import numpy as np
         from paddle_tpu_torch import distributed as dist
         from paddle_tpu_torch.convert import load_paddle_tpu_params
-        from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
-                                                PredictorServer)
+        from paddle_tpu_torch import jit, seed
+        from paddle_tpu_torch.inference import (Config,
+                                                ContinuousBatchingEngine,
+                                                PredictorServer,
+                                                create_predictor)
         from paddle_tpu_torch.kernels import _build
         from paddle_tpu_torch.jit import TrainStep
         from paddle_tpu_torch.kernels import cache_write as cw
@@ -2269,11 +2693,17 @@ def main():
         from paddle_tpu_torch.kernels import flash_block as fb
         from paddle_tpu_torch.kernels import fused_ce as ce
         from paddle_tpu_torch.kernels import mega_decode as md
-        from paddle_tpu_torch.models import (GPTForCausalLM,
-                                             LlamaForCausalLM, generate,
+        from paddle_tpu_torch.models import (BertForMaskedLM,
+                                             BertForSequenceClassification,
+                                             ErnieModel, GPTForCausalLM,
+                                             LlamaForCausalLM, bert_base,
+                                             ernie_3_base, generate,
                                              gpt_125m, llama_13b)
         from paddle_tpu_torch.models import generation as gm
         from paddle_tpu_torch.optimizer import AdamW
+        # the module's name is shadowed by its flash_attention function
+        nnfa = importlib.import_module(
+            "paddle_tpu_torch.nn.functional.flash_attention")
     except ImportError as e:
         fail(f"cannot import paddle_tpu_torch (run from the repo root): {e}")
     pkg = {"md": md, "cw": cw, "fa": fa, "fb": fb, "ce": ce, "np": np,
@@ -2282,7 +2712,12 @@ def main():
            "Engine": ContinuousBatchingEngine, "Server": PredictorServer,
            "GPT": GPTForCausalLM, "gpt_125m": gpt_125m, "AdamW": AdamW,
            "Llama": LlamaForCausalLM, "llama_13b": llama_13b,
-           "TrainStep": TrainStep, "load": load_paddle_tpu_params}
+           "TrainStep": TrainStep, "load": load_paddle_tpu_params,
+           "Ernie": ErnieModel, "ernie_3_base": ernie_3_base,
+           "BertCls": BertForSequenceClassification,
+           "BertMLM": BertForMaskedLM, "bert_base": bert_base, "jit": jit,
+           "Config": Config, "create_predictor": create_predictor,
+           "seed": seed, "nnfa": nnfa}
     t_start = time.perf_counter()
 
     print("phase 1: card", flush=True)
@@ -2375,6 +2810,27 @@ def main():
                                   cases=[(8192, torch.bfloat16, None)],
                                   timing=("bfloat16",))
     check_sampling(torch, np, gm, flush)
+    print("  BERT/ERNIE's shapes:", flush=True)
+    nc = (("bfloat16", False, 0, 0),)
+    b1e_errs, b1e_rows = check_flash(
+        torch, fa, flush, shape=(1, BERT_H, ERNIE_S, BERT_HD), cases=nc,
+        timing=("bfloat16",), timed_causal=False, kinds=("fwd",), simt=False)
+    check_flash(torch, fa, flush, shape=(FT_BATCH, BERT_H, ERNIE_S, BERT_HD),
+                cases=nc, timing=("bfloat16",), timed_causal=False,
+                simt=False)
+    b1f_errs, b1f_rows = check_flash(
+        torch, fa, flush, shape=(2, BERT_H, ERNIE_S, BERT_HD),
+        cases=(("float32", False, 0, 0),), timing=("float32",),
+        timed_causal=False, simt=False)
+    b2c_errs, b2c_rows = check_ce(
+        torch, ce, flush, V=2, cases=[(FT_BATCH, torch.bfloat16, None),
+                                      (FT_BATCH, torch.float32, None)],
+        timing_n=FT_BATCH)
+    n_mlm = FT_BATCH * ERNIE_S
+    b2m_errs, b2m_rows = check_ce(
+        torch, ce, flush, V=BERT_V, cases=[(n_mlm, torch.bfloat16, None),
+                                           (n_mlm, torch.float32, None)],
+        timing_n=n_mlm, ignore_frac=0.25)
     del flush
     torch.cuda.empty_cache()
 
@@ -2509,7 +2965,11 @@ def main():
     llama = llama_serving(torch, pkg)
     llama["train"] = llama_oracle_and_training(torch, pkg)
 
-    print("phase 19: summary", flush=True)
+    ernie = ernie_serving(torch, pkg, card)
+    b1_oracle, b2_mlm = bert_oracle(torch, pkg)
+    ft_counts, _, _ = bert_finetune(torch, pkg)
+
+    print("phase 22: summary", flush=True)
     main_b4 = b4_rows[("bf16", "serving-like pos")]
     main_b3 = b3_rows["int8 data"]
     main_b3p = b3p_rows[("bf16 pages", "decode")]
@@ -2629,7 +3089,47 @@ def main():
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    # BERT/ERNIE's shapes: B1 non-causal bf16 at batch 1 x 128 (phase 19's
+    # serving launches), f32 at 2 x 128 (phase 20's oracle), B2 at V 2
+    # (phase 21's fine-tuning steps) and at V 30522 (phase 20's MLM)
+    b1e, b1f = b1e_errs[(torch.bfloat16, False, 0)], \
+        b1f_errs[(torch.float32, False, 0)]
+    b2c, b2m = b2c_errs[(FT_BATCH, torch.bfloat16, None)], \
+        b2m_errs[(n_mlm, torch.float32, None)]
+    for name, src, replaces, n, err, row in (
+            ("flash_attn_fwd_noncausal_s128", "flash_attention_sm90.cu",
+             b1_src, ernie["b1"], max(b1e["out"], b1e["lse"]),
+             b1e_rows[("bf16", "fwd")]),
+            ("flash_attn_fwd_f32_noncausal_s128",
+             "flash_attention_sm90_f32.cu", b1_src,
+             b1_oracle["flash_attn_fwd"][0], max(b1f["out"], b1f["lse"]),
+             b1f_rows[("f32", "fwd")]),
+            ("flash_attn_bwd_f32_noncausal_s128",
+             "flash_attention_sm90_f32.cu", b1_src,
+             b1_oracle["flash_attn_bwd"][0],
+             max(b1f["dq"], b1f["dk"], b1f["dv"]), b1f_rows[("f32", "bwd")]),
+            ("ce_fwd_v2", "fused_ce.cu", "paddle_tpu/kernels/fused_ce.py:172",
+             ft_counts["ce_fwd"], max(b2c["per"], b2c["lse"]),
+             b2c_rows[("bf16", "fwd")]),
+            ("ce_bwd_v2", "fused_ce.cu", "paddle_tpu/kernels/fused_ce.py:210",
+             ft_counts["ce_bwd"], b2c["dlogits"], b2c_rows[("bf16", "bwd")]),
+            ("ce_fwd_v30522", "fused_ce.cu",
+             "paddle_tpu/kernels/fused_ce.py:172", b2_mlm[0],
+             max(b2m["per"], b2m["lse"]), b2m_rows[("f32", "fwd")]),
+            ("ce_bwd_v30522", "fused_ce.cu",
+             "paddle_tpu/kernels/fused_ce.py:210", b2_mlm[1],
+             b2m["dlogits"], b2m_rows[("f32", "bwd")])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     serving_summary({15: llama["serve15"], 16: llama["serve16"]}, card)
+    print(f"  ERNIE-3.0-base Predictor.run latency, batch 1 x {ERNIE_S}: p50 "
+          f"{ernie['p50']:.3f} ms, p99 {ernie['p99']:.3f} ms ({card})",
+          flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -25,5 +25,6 @@ the blockwise flash kernels, which GPT's and Llama's attention take under
 such a mesh.
 """
 from .device import resolve_device
+from .framework.random import seed
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "seed"]

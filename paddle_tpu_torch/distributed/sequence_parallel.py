@@ -41,7 +41,7 @@ import math
 import torch
 
 from ..kernels import flash_block as _fb
-from ..nn.functional.flash_attention import _FlashAttention
+from ..nn.functional.flash_attention import _flash
 from . import mesh as mesh_mod
 
 __all__ = ["ring_attention", "ulysses_attention", "last_ring_dispatch"]
@@ -192,7 +192,7 @@ def ring_attention(q, k, v, causal: bool = False, scale: float = None):
         _last_dispatch.update(path="flash", sl=S, d=D, op="ring",
                               reason="sp<=1: no ring, single-device flash "
                               "attention")
-        return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
+        return _flash(q, k, v, causal, scale)
     if S % sp:
         raise ValueError(f"sequence {S} not divisible by sp={sp}")
     sl = S // sp

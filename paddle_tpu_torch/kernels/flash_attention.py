@@ -45,6 +45,15 @@ memory-efficient attention does. ``_pallas_flash`` rounds P and dS to bf16
 instead; every path computes its function at least as precisely. So one
 plain version, f32 products with the result cast to the inputs' dtype,
 holds all three.
+
+The operators ``paddle_tpu_torch::flash_attn`` (forward) and
+``paddle_tpu_torch::flash_attn_grad`` (backward) put the two wrappers
+behind ``torch.library.custom_op``: training differentiates through
+``flash_attn`` (its registered backward calls ``flash_attn_grad``), and
+``torch.export`` (``jit.save``) records the call as one node that
+survives ``export -> save -> load``, which a ``ctypes`` launch alone does
+not. Their fake implementations give the output shapes and launch
+nothing; the launch counters move only inside the wrappers.
 """
 from __future__ import annotations
 
@@ -56,7 +65,7 @@ from . import (_build, check_launch, common_device, ptr, require_contiguous,
                stream_ptr)
 
 __all__ = ["flash_attn_fwd", "flash_attn_bwd", "flash_attn_fwd_plain",
-           "flash_attn_bwd_plain"]
+           "flash_attn_bwd_plain", "flash_attn", "flash_attn_grad"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 128
@@ -277,3 +286,51 @@ def flash_attn_bwd(q, k, v, out, lse, do, causal, sm_scale, q_off=0,
 
 for _w in (flash_attn_fwd, flash_attn_bwd):
     _w.launches = _w.tc_launches = _w.simt_launches = 0
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attn", mutates_args=())
+def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, scale: float
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B1's forward as an operator: ``flash_attn_fwd(q, k, v, causal,
+    scale)`` on ``(B, H, S, D)`` inputs, (out, lse). Differentiable in q,
+    k and v (not through lse)."""
+    return flash_attn_fwd(q, k, v, causal, scale)
+
+
+@flash_attn.register_fake
+def _flash_attn_fake(q, k, v, causal, scale):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attn_grad",
+                         mutates_args=())
+def flash_attn_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                    causal: bool, scale: float
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B1's backward as an operator: ``flash_attn_bwd``, (dq, dk, dv)."""
+    return flash_attn_bwd(q, k, v, out, lse, do, causal, scale)
+
+
+@flash_attn_grad.register_fake
+def _flash_attn_grad_fake(q, k, v, out, lse, do, causal, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_attn_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _flash_attn_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attn_grad(q, k, v, out, lse, dout.contiguous(),
+                                 ctx.causal, ctx.scale)
+    return dq, dk, dv, None, None
+
+
+flash_attn.register_autograd(_flash_attn_backward,
+                             setup_context=_flash_attn_setup)

@@ -27,11 +27,12 @@ from torch import nn
 from ..device import resolve_device
 from ..distributed.mesh import mesh_axis_size
 from ..distributed.sequence_parallel import ring_attention
+from ..nn import Dropout, Embedding, LayerNorm, Linear
 from ..nn import functional as F
 from .generation import new_kv_caches, new_paged_kv_caches
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
-           "gpt_125m", "gpt_1p3b"]
+           "gpt_125m", "gpt_1p3b", "gpt_6p7b"]
 
 
 @dataclass
@@ -67,57 +68,16 @@ def gpt_1p3b(**kw):
                      max_seq_len=2048, **kw)
 
 
+def gpt_6p7b(**kw):
+    return GPTConfig(hidden_size=4096, num_layers=32, num_heads=32,
+                     max_seq_len=2048, **kw)
+
+
 def _check_supported(cfg: GPTConfig):
     for name in ("scan_layers", "use_moe", "recompute", "fused_loss_chunk"):
         if getattr(cfg, name):
             raise NotImplementedError(
                 f"GPTConfig.{name} is not ported yet — see ROADMAP.md")
-
-
-class Linear(nn.Module):
-    """Paddle-layout linear: weight ``[in, out]``, ``y = x @ W + b``."""
-
-    def __init__(self, in_features, out_features, bias=True):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(in_features, out_features))
-        self.bias = (nn.Parameter(torch.zeros(out_features))
-                     if bias else None)
-
-    def forward(self, x):
-        y = x @ self.weight
-        return y if self.bias is None else y + self.bias
-
-
-class LayerNorm(nn.Module):
-    def __init__(self, hidden):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(hidden))
-        self.bias = nn.Parameter(torch.zeros(hidden))
-
-    def forward(self, x):
-        return F.layer_norm(x, self.weight, self.bias)
-
-
-class RMSNorm(nn.Module):
-    """paddle_tpu's ``nn.RMSNorm`` (Llama's norm): ``weight`` initialised
-    to ones, no bias."""
-
-    def __init__(self, hidden_size, epsilon=1e-6):
-        super().__init__()
-        self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(hidden_size))
-
-    def forward(self, x):
-        return F.rms_norm(x, self.weight, self.epsilon)
-
-
-class Embedding(nn.Module):
-    def __init__(self, num, dim):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(num, dim))
-
-    def forward(self, ids):
-        return torch.nn.functional.embedding(ids, self.weight)
 
 
 class GPTAttention(nn.Module):
@@ -130,7 +90,7 @@ class GPTAttention(nn.Module):
         self.head_dim = h // nh
         self.qkv = Linear(h, 3 * h)
         self.out_proj = Linear(h, h)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
 
     def _qkv(self, x):
         B, S, _ = x.shape
@@ -160,7 +120,7 @@ class GPTMLP(nn.Module):
         h = cfg.hidden_size
         self.fc_in = Linear(h, cfg.ffn_mult * h)
         self.fc_out = Linear(cfg.ffn_mult * h, h)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x):
         return self.dropout(self.fc_out(F.gelu(self.fc_in(x))))
@@ -191,7 +151,7 @@ class GPTEmbeddings(nn.Module):
         self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = Embedding(cfg.max_seq_len,
                                              cfg.hidden_size)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, ids, pos=None):
         S = ids.shape[-1]

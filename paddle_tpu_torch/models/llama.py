@@ -30,9 +30,10 @@ from torch import nn
 from ..device import resolve_device
 from ..distributed.mesh import mesh_axis_size
 from ..distributed.sequence_parallel import ring_attention
+from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
 from .generation import new_kv_caches, new_paged_kv_caches
-from .gpt import Embedding, GPTForCausalLM, Linear, RMSNorm
+from .gpt import GPTForCausalLM
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
            "llama_7b", "llama_13b"]

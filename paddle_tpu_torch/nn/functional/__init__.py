@@ -1,7 +1,8 @@
-"""Functionals the GPT and Llama slices use (plain PyTorch around the
-hand-written kernels, ``[B, S, H, D]`` activations and ``[B, L, nkv, hd]``
-caches as in paddle_tpu)."""
-from .activation import gelu, silu
+"""Functionals the GPT, Llama and BERT slices use (plain PyTorch around
+the hand-written kernels, ``[B, S, H, D]`` activations and ``[B, L, nkv,
+hd]`` caches as in paddle_tpu)."""
+from .activation import gelu, relu, silu, tanh
+from .common import dropout
 from .flash_attention import (cached_attention, causal_attention,
                               flash_attention, paged_kv_cache,
                               quantized_kv_cache,
@@ -9,7 +10,8 @@ from .flash_attention import (cached_attention, causal_attention,
 from .loss import cross_entropy, softmax_with_cross_entropy
 from .norm import layer_norm, rms_norm
 
-__all__ = ["gelu", "silu", "layer_norm", "rms_norm", "cached_attention",
-           "causal_attention", "flash_attention",
-           "scaled_dot_product_attention", "quantized_kv_cache",
-           "paged_kv_cache", "cross_entropy", "softmax_with_cross_entropy"]
+__all__ = ["gelu", "relu", "silu", "tanh", "dropout", "layer_norm",
+           "rms_norm", "cached_attention", "causal_attention",
+           "flash_attention", "scaled_dot_product_attention",
+           "quantized_kv_cache", "paged_kv_cache", "cross_entropy",
+           "softmax_with_cross_entropy"]

@@ -8,12 +8,14 @@ or the int8 dict form ``{"data": int8 [B, L, nkv, hd], "scale": f32 [B,
 L, nkv]}`` from ``quantized_kv_cache``.
 
 Training half: ``flash_attention`` and an unmasked
-``scaled_dot_product_attention`` run the hand-written flash-attention
-kernels (B1, ``kernels/flash_attention.py``) forward and backward through
-``_FlashAttention``, as paddle_tpu runs ``_pallas_flash`` on the TPU;
-causal masking is top-left aligned (query i sees keys j <= i). An
-explicit ``attn_mask`` runs plain tensor code, as it runs XLA code in
-paddle_tpu. Attention dropout in training is not ported (ROADMAP.md).
+``scaled_dot_product_attention`` without dropout run the hand-written
+flash-attention kernels (B1, ``kernels/flash_attention.py``) forward and
+backward through the ``flash_attn`` operator, as paddle_tpu runs
+``_pallas_flash`` on the TPU; causal masking is top-left aligned (query i
+sees keys j <= i). An explicit ``attn_mask`` runs plain tensor code, and
+so does attention dropout in training (with or without a mask, its causal
+mask aligned bottom-right), as both run XLA code in paddle_tpu
+(``_pallas_geometry_ok`` refuses any rate).
 
 Cache half: unlike the JAX functions, which return new caches, every
 function here writes the caches IN PLACE and returns the same objects.
@@ -46,7 +48,8 @@ import torch
 
 from ...kernels.cache_write import kv_paged_write, kv_slot_write
 from ...kernels.cache_write import quant_rows as _quant_rows
-from ...kernels.flash_attention import flash_attn_bwd, flash_attn_fwd
+from ...framework.random import keep_mask
+from ...kernels.flash_attention import flash_attn
 from ...kernels.mega_decode import mega_decode_step
 
 __all__ = ["flash_attention", "scaled_dot_product_attention",
@@ -56,68 +59,76 @@ __all__ = ["flash_attention", "scaled_dot_product_attention",
 _NEG_INF = -1e30
 
 
-class _FlashAttention(torch.autograd.Function):
+def _flash(q, k, v, causal, scale):
     """``[B, S, H, D]`` attention on the B1 kernels: transposes to
-    ``(B, H, S, D)`` for the kernel and back, as ``_pallas_flash`` does;
-    the backward is the kernel's FA2 backward against the saved (out,
+    ``(B, H, S, D)`` contiguous for the kernel (which also meets its
+    16-byte alignment rule on views sliced out of a fused qkv) and back,
+    as ``_pallas_flash`` does, through the ``flash_attn`` operator, whose
+    backward is the kernel's FA2 backward against the saved (out,
     lse)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        out, lse = flash_attn_fwd(qh, kh, vh, causal, scale)
-        ctx.save_for_backward(qh, kh, vh, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out.transpose(1, 2)
-
-    @staticmethod
-    def backward(ctx, dout):
-        qh, kh, vh, out, lse = ctx.saved_tensors
-        do = dout.transpose(1, 2).contiguous()
-        dq, dk, dv = flash_attn_bwd(qh, kh, vh, out, lse, do, ctx.causal,
-                                    ctx.scale)
-        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2), \
-            None, None
-
-
-def _no_dropout(drop, op):
-    if drop > 0.0:
-        raise NotImplementedError(
-            f"{op}: attention dropout in training is not ported yet — see "
-            "ROADMAP.md")
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    out, _ = flash_attn(qh, kh, vh, bool(causal), float(scale))
+    return out.transpose(1, 2)
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None, rng_name="",
                     training=True, name=None):
     """q/k/v ``[B, S, H, D]`` -> ``(out [B, S, H, D], None)``, paddle's
-    (result, softmax) pair; softmax scale ``1 / sqrt(D)``. Runs the B1
-    kernels forward and backward on the card, their plain versions on the
-    CPU. ``fixed_seed_offset`` and ``rng_name`` seed attention dropout,
-    which is not ported; ``name`` is ignored, as paddle_tpu ignores it."""
-    _no_dropout(dropout if training else 0.0, "flash_attention")
-    if fixed_seed_offset is not None or rng_name:
-        raise NotImplementedError(
-            "flash_attention: fixed_seed_offset / rng_name (dropout seeds) "
-            "are not ported yet — see ROADMAP.md")
+    (result, softmax) pair; softmax scale ``1 / sqrt(D)``. Without
+    dropout it runs the B1 kernels forward and backward on the card, their
+    plain versions on the CPU; with ``dropout > 0`` in training it takes
+    the plain dropout branch (``_dropout_attention``). ``fixed_seed_offset``
+    and ``rng_name`` are accepted and ignored, and so is ``name``, as
+    paddle_tpu ignores them: the mask comes from the port's generator."""
     scale = 1.0 / query.shape[-1] ** 0.5
-    return _FlashAttention.apply(query, key, value, bool(causal), scale), \
-        None
+    drop = dropout if training else 0.0
+    if drop > 0.0:
+        return _dropout_attention(query, key, value, None, causal, scale,
+                                  drop), None
+    return _flash(query, key, value, causal, scale), None
+
+
+def _masked_logits(q, k, attn_mask, causal, scale, causal_offset):
+    """``[B, H, Sq, Sk]`` f32 logits with an explicit mask (bool: keep
+    where True) or an additive bias, broadcast, and the causal mask
+    (``tril(.., causal_offset)``) applied."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = torch.where(attn_mask, logits, _NEG_INF)
+        else:
+            logits = logits + attn_mask.float()
+    if causal:
+        Sq, Sk = q.shape[1], k.shape[1]
+        keep = torch.ones(Sq, Sk, dtype=torch.bool,
+                          device=q.device).tril(causal_offset)
+        logits = torch.where(keep, logits, _NEG_INF)
+    return logits
 
 
 def _masked_attention(q, k, v, attn_mask, causal, scale):
     """Plain attention with an explicit mask (bool: keep where True) or an
-    additive bias, broadcast to ``[B, H, Sq, Sk]``; softmax in f32."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    if attn_mask.dtype == torch.bool:
-        logits = torch.where(attn_mask, logits, _NEG_INF)
-    else:
-        logits = logits + attn_mask.float()
-    if causal:
-        Sq, Sk = q.shape[1], k.shape[1]
-        keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
-        logits = torch.where(keep, logits, _NEG_INF)
+    additive bias, broadcast to ``[B, H, Sq, Sk]``; softmax in f32; the
+    causal mask top-left aligned."""
+    probs = torch.softmax(_masked_logits(q, k, attn_mask, causal, scale, 0),
+                          dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
+
+
+def _dropout_attention(q, k, v, attn_mask, causal, scale, p):
+    """paddle_tpu's attention-dropout branch (``_xla_attention`` with a
+    rate): f32 logits, the bias or bool mask, the causal mask aligned
+    bottom-right (``tril(.., Sk - Sq)``, as that branch aligns it), the f32
+    softmax, ``where(keep, probs / (1 - p), 0)`` with ``keep`` drawn from
+    the port's generator for q's device (``framework.random.keep_mask``),
+    cast back to q's dtype for the product with v. Plain tensor code, as it
+    is XLA code in paddle_tpu: no kernel runs here."""
+    logits = _masked_logits(q, k, attn_mask, causal, scale,
+                            k.shape[1] - q.shape[1])
     probs = torch.softmax(logits, dim=-1)
+    keep = keep_mask(probs.shape, p, q.device)
+    probs = torch.where(keep, probs / (1.0 - p), 0.0)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
 
 
@@ -125,15 +136,18 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None):
     """paddle's ``scaled_dot_product_attention`` on ``[B, S, H, D]``.
-    Without a mask it is ``flash_attention`` (the B1 kernels); with
-    ``attn_mask`` (bool keep-mask or additive bias) it is plain tensor
-    code. ``name`` is ignored, as paddle_tpu ignores it."""
-    _no_dropout(dropout_p if training else 0.0,
-                "scaled_dot_product_attention")
+    Without a mask and without dropout it is ``flash_attention`` (the B1
+    kernels); with ``attn_mask`` (bool keep-mask or additive bias) it is
+    plain tensor code; with ``dropout_p > 0`` in training, mask or not, it
+    is the plain dropout branch (``_dropout_attention``). ``name`` is
+    ignored, as paddle_tpu ignores it."""
     scale = 1.0 / query.shape[-1] ** 0.5
+    drop = dropout_p if training else 0.0
+    if drop > 0.0:
+        return _dropout_attention(query, key, value, attn_mask, is_causal,
+                                  scale, drop)
     if attn_mask is None:
-        return _FlashAttention.apply(query, key, value, bool(is_causal),
-                                     scale)
+        return _flash(query, key, value, is_causal, scale)
     return _masked_attention(query, key, value, attn_mask, is_causal, scale)
 
 

@@ -16,13 +16,23 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu import jit as jjit
+from paddle_tpu.inference import predictor as jpred
+from paddle_tpu.inference import serve as jserve
 from paddle_tpu.inference.engine import \
     ContinuousBatchingEngine as JaxEngine
 from paddle_tpu.models import generation as jgen
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
+from paddle_tpu.nn.functional import activation as jact
+from paddle_tpu.nn.functional import common as jcommon
+from paddle_tpu_torch import jit as tjit
+from paddle_tpu_torch.inference import predictor as tpred
+from paddle_tpu_torch.inference import serve as tserve
 from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
 from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.models.gpt import GPTConfig
+from paddle_tpu_torch.nn.functional import activation as tact
+from paddle_tpu_torch.nn.functional import common as tcommon
 
 # both packages re-export a flash_attention function under the module's name
 jfa = importlib.import_module("paddle_tpu.nn.functional.flash_attention")
@@ -43,9 +53,17 @@ def test_gpt_config_fields_match_reference():
     (tfa.flash_attention, jfa.flash_attention),
     (tfa.scaled_dot_product_attention, jfa.scaled_dot_product_attention),
     (tgen.generate, jgen.generate),
-    (ContinuousBatchingEngine.__init__, JaxEngine.__init__)],
+    (ContinuousBatchingEngine.__init__, JaxEngine.__init__),
+    (tserve.PredictorServer.__init__, jserve.PredictorServer.__init__),
+    (tpred.Config.__init__, jpred.Config.__init__),
+    (tpred.create_predictor, jpred.create_predictor),
+    (tjit.save, jjit.save),
+    (tjit.InputSpec.__init__, jjit.InputSpec.__init__),
+    (tcommon.dropout, jcommon.dropout),
+    (tact.gelu, jact.gelu)],
     ids=["flash_attention", "scaled_dot_product_attention", "generate",
-         "ContinuousBatchingEngine"])
+         "ContinuousBatchingEngine", "PredictorServer", "Config",
+         "create_predictor", "jit.save", "InputSpec", "dropout", "gelu"])
 def test_signature_matches_reference(port, ref):
     got = list(inspect.signature(port).parameters)
     want = list(inspect.signature(ref).parameters)
@@ -62,9 +80,14 @@ def _qkv():
 
 @pytest.mark.parametrize("kw", [{"fixed_seed_offset": 3},
                                 {"rng_name": "local_seed"}])
-def test_flash_attention_dropout_seeds_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention(*_qkv(), **kw)
+def test_flash_attention_dropout_seeds_are_ignored(kw):
+    """paddle_tpu takes ``fixed_seed_offset`` and ``rng_name`` and reads
+    neither; so does the port: the result is the same bit for bit."""
+    q, k, v = _qkv()
+    want = tfa.flash_attention(q, k, v, causal=True)[0]
+    torch.testing.assert_close(
+        tfa.flash_attention(q, k, v, causal=True, **kw)[0], want, rtol=0,
+        atol=0)
 
 
 def test_attention_name_is_ignored():

@@ -195,7 +195,7 @@ def _post(url, payload, raw=None):
 
 
 def test_server_round_trip_and_errors(models, engine):
-    srv = PredictorServer(engine, host="127.0.0.1", port=0).start()
+    srv = PredictorServer(engine=engine, host="127.0.0.1", port=0).start()
     url = f"http://{srv.host}:{srv.port}"
     try:
         prompts = _prompts()[:3]
@@ -228,7 +228,7 @@ def test_server_round_trip_and_errors(models, engine):
     full = ContinuousBatchingEngine(models[1], slots=2, max_queue=0,
                                     cache_dtype="float32", device="cpu",
                                     **ENGINE_KW)
-    srv = PredictorServer(full, host="127.0.0.1", port=0).start()
+    srv = PredictorServer(engine=full, host="127.0.0.1", port=0).start()
     try:
         code, headers, body = _post(f"http://{srv.host}:{srv.port}",
                                     {"input_ids": [1, 2, 3]})

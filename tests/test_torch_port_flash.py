@@ -207,14 +207,6 @@ def test_sdpa_with_mask_matches_paddle_tpu(case):
     _close(got, np.asarray(want.numpy()))
 
 
-def test_attention_dropout_in_training_not_ported():
-    q, k, v, _ = _t(*_qkv(B=1, H=1, Sq=8, D=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.flash_attention(q, k, v, dropout=0.1, causal=True)
-    # evaluation ignores the rate, as paddle_tpu's does
-    TF.flash_attention(q, k, v, dropout=0.1, causal=True, training=False)
-
-
 # ---------------------------------------------------------------- precision
 # Both kernel paths take every product as an f32 product of the inputs; the
 # plain versions are the f32 formula on the widened inputs, the result cast

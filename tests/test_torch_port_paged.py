@@ -541,7 +541,7 @@ def test_paged_submit_validation_and_cache_exhausted(models):
         gate.wait(timeout=60)
         tick()
     eng._tick = gated_tick
-    srv = PredictorServer(eng, host="127.0.0.1", port=0).start()
+    srv = PredictorServer(engine=eng, host="127.0.0.1", port=0).start()
     try:
         with pytest.raises(ValueError, match="overshoot"):
             eng.submit(_prompt(0, 16), max_new_tokens=13)
@@ -579,7 +579,8 @@ def test_healthz_and_prewarm(models, paged_engine):
     land in the prefix cache; /healthz carries the pool fields, and the
     next /generate of that prompt is a prefix hit."""
     _, tm = models
-    srv = PredictorServer(paged_engine, host="127.0.0.1", port=0).start()
+    srv = PredictorServer(engine=paged_engine, host="127.0.0.1",
+                          port=0).start()
     url = f"http://{srv.host}:{srv.port}"
     try:
         ids = _prompt(70, 16)

@@ -243,7 +243,7 @@ def test_engine_seed_and_knobs(model):
 def test_server_passes_the_seed(model):
     eng = ContinuousBatchingEngine(model, slots=2, device="cpu",
                                    **dict(ENGINE_KW, **SAMPLE))
-    srv = PredictorServer(eng, host="127.0.0.1", port=0).start()
+    srv = PredictorServer(engine=eng, host="127.0.0.1", port=0).start()
     url = f"http://{srv.host}:{srv.port}/generate"
     try:
         bodies = {}

@@ -19,7 +19,6 @@ B1 against paddle_tpu's plain attention atol 1e-5 (one softmax over 32
 keys); GPT TrainStep losses rtol 1e-4 per step, as the port's unsharded
 trajectory test.
 """
-import importlib
 
 import numpy as np
 import pytest
@@ -37,13 +36,12 @@ from paddle_tpu_torch import distributed as tdist
 from paddle_tpu_torch.convert import load_paddle_tpu_params
 from paddle_tpu_torch.distributed import sequence_parallel as tsp
 from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.kernels import flash_attention as tka
 from paddle_tpu_torch.kernels import flash_block as tfb
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.optimizer import AdamW
 
-# the module (the package's name ``flash_attention`` is the function)
-tfa = importlib.import_module("paddle_tpu_torch.nn.functional.flash_attention")
 SP = 4
 CPU4 = ["cpu"] * SP
 # paddle_tpu writes "pallas" where the port writes "kernel", and "plain"
@@ -223,12 +221,13 @@ def test_no_sp_axis_runs_flash_attention(monkeypatch):
     """Without an sp axis both functions are the flash-attention kernels
     (B1) on one device, matching paddle_tpu's plain attention."""
     calls = []
-    real = tfa.flash_attn_fwd
+    real = tka.flash_attn_fwd
 
     def record(*a, **kw):
         calls.append(a[0].shape)
         return real(*a, **kw)
-    monkeypatch.setattr(tfa, "flash_attn_fwd", record)
+    # the flash_attn operator calls B1's wrapper by its module's name
+    monkeypatch.setattr(tka, "flash_attn_fwd", record)
     rs = np.random.RandomState(6)
     q, k, v = (torch.from_numpy(rs.randn(1, 32, 2, 8).astype(np.float32))
                for _ in range(3))

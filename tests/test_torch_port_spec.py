@@ -181,7 +181,7 @@ def test_spec_healthz_and_generate_fields(models):
     _, tm = models
     eng = ContinuousBatchingEngine(tm, slots=2, cache_dtype="float32",
                                    device="cpu", **ENGINE_KW)
-    srv = PredictorServer(eng, host="127.0.0.1", port=0).start()
+    srv = PredictorServer(engine=eng, host="127.0.0.1", port=0).start()
     url = f"http://{srv.host}:{srv.port}"
     try:
         ids = _rep_prompt(60, 4, 3)
