@@ -192,7 +192,34 @@ failure:
    keeps 0.9 +- 0.005; 1 warm step then 5: finite losses, the last below
    the first; B2 1 + 1 a step, B1 and B5 never (the dropout branch is
    plain code, as in paddle_tpu), no plain version; one step profiled.
-22. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
+22. the serving tier: gpt_125m (full width and depth) behind a paged bf16
+   engine with the prefix cache and n-gram speculation (slots 8, max_len
+   1024, tick 8, 16-token pages), obs on, PredictorServer(warmup=True):
+   /healthz 503 "warming" first, then 200 (the warmup's wall time, and
+   the first request's TTFT after it beside phase 9's cold first request,
+   from the engine.prefill span); 8 concurrent streamed /generate and the
+   same 8 single-shot (each set admitted in one pass, after one pass that
+   caches their prefixes): the {"t"} lines are the done body's generated
+   tokens and equal the single-shot reply, token for token;
+   kv_paged_write launches equal forwards x 12, B4 and every plain
+   version never; a 256-token request cancelled by POST /cancel
+   mid-decode gets 409 with partial tokens that are a prefix of the same
+   request uncancelled; a stream whose client closes the socket is
+   cancelled, and after both no slot is busy and the allocator's
+   invariants hold; /metrics before and after: every series of
+   paddle_tpu's paged speculative engine present, counters monotone, the
+   tick, admit, retire and cancel deltas equal to stats(); TTFT and queue
+   wait p50/p99 from the histograms and the last tick_model_eff; POST
+   /admin/trace?duration_s=2&profile=1 over 8 requests: serve.generate
+   spans with their ids, engine.tick spans, the torch.profiler trace names
+   kv_paged_write, no torch_profile_error; stop(drain_s=120) with one
+   request in flight: a new /generate gets 503 "draining" with
+   Retry-After, the in-flight one 200 with all its tokens. Then a slot
+   bf16 engine (B4) streams 4 requests held to their single-shot replies
+   (mega_decode_step launches ticks x 8 x 12); last, phase 4's serving
+   with PADDLE_TPU_OBS off and on, in turns, six times each (ms a tick
+   each and the medians).
+23. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
    wgmma kernels of phases 8 and 14, and the f32 3xTF32 ones of phases 7
    and 13, their launches from the tensor-core counts; B3 four times:
    kv_slot_write and kv_paged_write with their launches in phases 6 and
@@ -201,9 +228,9 @@ failure:
    with their launches in phases 15 and 16, B1 at D 128 and B2 at V 32000
    with phase 18's; then BERT/ERNIE's rows: B1 non-causal bf16 with phase
    19's launches, B1 f32 with phase 20's, B2 at V 2 with phase 21's and at
-   V 30522 with phase 20's), the serving lines of phases 15 and 16 and
-   phase 19's latency, the card line, and last the {"ok": true, "device":
-   {...}} line.
+   V 30522 with phase 20's), the serving lines of phases 15 and 16,
+   phase 19's latency and phase 22's figures, the card line, and last the
+   {"ok": true, "device": {...}} line.
 
 ``python3 chip_smoke.py --sp-cards`` on a host with 4 or more cards runs
 phases 1 and 2 and then only phase 13's run with one shard on each of
@@ -214,9 +241,11 @@ checks, and prints
 their summary lines and no result line: copied into a checkout of an
 earlier commit, it measures that commit's serving the same way.
 """
+import atexit
 import dataclasses
 import gc
 import importlib
+import importlib.util
 import json
 import math
 import os
@@ -2019,6 +2048,13 @@ def serve(torch, pkg, model, cache_dtype, prompts, slots=8, profile=False,
         wall = time.perf_counter() - t0
         counts = {n: w.launches for n, w in wrappers.items()}
         stats = eng.stats()
+        if "obs" in pkg and pkg["obs"].enabled():
+            # the engine's first admission: its TTFT from the prefill span
+            first = min((e for e in pkg["obs"].recorder.events(t0)
+                         if e["name"] == "engine.prefill"),
+                        key=lambda e: e["ts"], default=None)
+            if first is not None:
+                out["first_ttft_ms"] = first["args"]["ttft_ms"]
         if eng.paged:
             eng._allocator.check()
         if profile:
@@ -2673,6 +2709,417 @@ def bert_finetune(torch, pkg, steps=5):
     return counts, vals, ms
 
 
+# paddle_tpu's engine series for a paged, speculative engine
+# (paddle_tpu/inference/engine.py:518-598): what phase 22's /metrics must
+# carry
+TIER_FAMILIES = (
+    "ptpu_engine_mesh_devices", "ptpu_engine_ticks_total",
+    "ptpu_engine_admits_total", "ptpu_engine_retires_total",
+    "ptpu_engine_cancels_total", "ptpu_engine_batch_occupancy",
+    "ptpu_engine_queue_wait_ms", "ptpu_engine_prefill_ms",
+    "ptpu_engine_decode_ms", "ptpu_engine_ttft_ms", "ptpu_engine_e2e_ms",
+    "ptpu_engine_pages_free", "ptpu_engine_pages_used",
+    "ptpu_engine_prefix_hits_total", "ptpu_engine_prefix_misses_total",
+    "ptpu_engine_spec_ticks_total", "ptpu_engine_spec_drafted_total",
+    "ptpu_engine_spec_accepted_total", "ptpu_engine_spec_rejected_total",
+    "ptpu_engine_spec_accepted_per_tick", "ptpu_engine_tick_model_eff")
+
+
+def http(url, path, payload=None, headers=None, timeout=600):
+    """(status, JSON body, headers) of one GET (no payload) or POST."""
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(url + path, data=data, headers=dict(
+        {"Content-Type": "application/json"}, **(headers or {})))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), dict(e.headers)
+
+
+def stream_generate(url, prompt, max_new, rid, cut_after=None):
+    """A streamed POST /generate: its NDJSON lines. With ``cut_after``,
+    the socket is closed once that many tokens arrived."""
+    req = urllib.request.Request(url + "/generate", data=json.dumps(
+        {"input_ids": [int(t) for t in prompt], "max_new_tokens": max_new,
+         "stream": True}).encode(), headers={
+        "Content-Type": "application/json", "X-PTPU-Request-Id": rid})
+    events, n = [], 0
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.headers["Content-Type"] != "application/x-ndjson":
+            fail(f"stream {rid}: content type {r.headers['Content-Type']}")
+        for raw in r:
+            if raw.strip():
+                events.append(json.loads(raw))
+                n += len(events[-1].get("t", []))
+                if cut_after is not None and n >= cut_after:
+                    break
+    return events
+
+
+def in_threads(fns):
+    """Run every callable at once; their results in order."""
+    out = [None] * len(fns)
+
+    def one(i):
+        out[i] = fns[i]()
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+        if t.is_alive():
+            fail("a request never returned")
+    return out
+
+
+def scrape(url):
+    """GET /metrics: ({sample name: value summed over its labels}, the
+    family names with a # TYPE line)."""
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        if "text/plain" not in r.headers["Content-Type"]:
+            fail("/metrics content type")
+        text = r.read().decode()
+    vals, types = {}, set()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            types.add(line.split()[2])
+        elif line and not line.startswith("#"):
+            name = line.split("{")[0].split()[0]
+            vals[name] = vals.get(name, 0.0) + float(line.split()[-1])
+    return vals, types
+
+
+def wait_until(what, cond, timeout=120):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def admit_together(eng, n):
+    """Hold the engine's next admission pass until ``n`` requests wait, so
+    that they are admitted in one pass and tick together: two runs of the
+    same requests then run the same forwards, and their bf16 tokens can be
+    held to each other token for token (with arrivals spread over ticks,
+    a row would see other verify and plain ticks, other GEMM shapes)."""
+    orig = eng._admit_ready
+
+    def gated():
+        wait_until(f"{n} queued requests", lambda: len(eng._queue) >= n)
+        del eng._admit_ready                 # the class's method again
+        orig()
+    eng._admit_ready = gated
+
+
+def check_streams(what, prompts, streams, singles, max_new):
+    """Each stream's {"t"} lines are its done body's generated suffix and
+    the done body's tokens the single-shot reply's."""
+    for i, (p, ev, (code, one)) in enumerate(zip(prompts, streams,
+                                                 singles)):
+        if code != 200 or "done" not in ev[-1]:
+            fail(f"{what} request {i}: single-shot {code}, stream end "
+                 f"{ev[-1]}")
+        body = ev[-1]["done"]
+        got = [t for e in ev[:-1] for t in e["t"]]
+        if (got != body["tokens"][len(p):len(p) + body["tokens_generated"]]
+                or body["tokens"] != one["tokens"]
+                or len(body["tokens"]) != len(p) + max_new
+                or len(ev[0]["t"]) != 1):
+            fail(f"{what} request {i}: streamed tokens differ from the "
+                 "done body or from the single-shot reply")
+
+
+def serving_tier(torch, pkg, card, cold_ttft_ms):
+    """Phase 22 (see the module docstring): the serving tier's engine
+    surface on gpt_125m at full width and depth. Returns the figures it
+    prints."""
+    np, obs, resil = pkg["np"], pkg["obs"], pkg["resil"]
+    reg = obs.metrics.registry
+    model = pkg["GPT"](pkg["gpt_125m"](), seed=0)
+    prompts = serving_prompts(np, model.cfg.vocab_size)
+    p8 = prompts[4]
+    wrappers = {name: getattr(pkg[m], name) for m, name in SERVE_KERNELS}
+    out = {}
+    eng = pkg["Engine"](model, slots=8, max_len=L_SLICE,
+                        cache_dtype="bfloat16", tick_tokens=TICK,
+                        paged=True, page_size=PAGE, prefix_cache=True,
+                        speculative="ngram")
+    if not eng._obs:
+        fail("obs is off (PADDLE_TPU_OBS): the tier phase needs it on")
+    plain, restore = _count_plain([pkg["md"], pkg["cw"]])
+    t0 = time.perf_counter()
+    srv = pkg["Server"](engine=eng, host="127.0.0.1", port=0,
+                        deadline_s=600, warmup=True).start()
+    url = f"http://{srv.host}:{srv.port}"
+    try:
+        code, body, _ = http(url, "/healthz")
+        if code != 503 or body["status"] != "warming":
+            fail(f"/healthz during warmup: {code} {body.get('status')}")
+        wait_until("warmup", lambda: http(url, "/healthz")[0] == 200)
+        out["warmup_s"] = time.perf_counter() - t0
+        _, body, _ = http(url, "/healthz")
+        st0 = eng.stats()
+        if "warmup_error" in body or not body["engine"]["warm"] or (
+                st0["ticks"], st0["admitted"], st0["pages_used"]) != (0, 0,
+                                                                      0):
+            fail(f"after warmup: {body}")
+        eng._allocator.check()
+        print(f"  warmup: 503 warming, then ready after "
+              f"{out['warmup_s']:.3f} s (server start to /healthz 200; "
+              f"{st0['compiled_programs']} programs run: "
+              f"{len(eng.prefill_buckets)} prefill buckets, decode, verify, "
+              f"page copy) ({card})", flush=True)
+        for w in wrappers.values():
+            w.launches = 0
+        m0, _ = scrape(url)
+        code, _, _ = http(url, "/generate", {
+            "input_ids": p8[0].tolist(), "max_new_tokens": MAX_NEW},
+            {"X-PTPU-Request-Id": "tier-first"})
+        first = [e for e in obs.recorder.events()
+                 if e["name"] == "engine.prefill"
+                 and e["args"].get("request_id") == "tier-first"]
+        if code != 200 or len(first) != 1:
+            fail(f"first request after warmup: {code}, spans {first}")
+        out["first_ttft_ms"] = first[0]["args"]["ttft_ms"]
+        print(f"  first request after warmup: TTFT "
+              f"{out['first_ttft_ms']:.3f} ms; phase 9's cold first "
+              f"request (no warmup): {cold_ttft_ms:.3f} ms ({card})",
+              flush=True)
+
+        print("  streaming: the 8 prompts once (their prefixes cached), "
+              "then 8 concurrent streams and the same 8 single-shot, each "
+              "set admitted in one pass", flush=True)
+        snaps = {n: reg.get(n).snap() for n in ("ptpu_engine_ttft_ms",
+                                                "ptpu_engine_queue_wait_ms")}
+        if any(c != 200 for c, _ in post_all(url, p8, MAX_NEW)):
+            fail("tier: a request of the first pass failed")
+        # TTFT and queue wait of these 8 requests, which arrive at once
+        for n, snap in snaps.items():
+            dl = reg.get(n).snap().minus(snap)
+            out[n] = (dl.percentile(0.5), dl.percentile(0.99))
+        admit_together(eng, len(p8))
+        streams = in_threads([
+            (lambda p=p, i=i: stream_generate(url, p, MAX_NEW, f"tier-s{i}"))
+            for i, p in enumerate(p8)])
+        admit_together(eng, len(p8))
+        singles = post_all(url, p8, MAX_NEW)
+        check_streams("paged speculative", p8, streams, singles, MAX_NEW)
+        st1 = eng.stats()
+        counts = {n: w.launches for n, w in wrappers.items()}
+        expect_launches(f"tier streaming (forwards {forwards(st1)} x "
+                        f"{LAYERS})", counts,
+                        kv_paged_write=forwards(st1) * LAYERS)
+        if any(plain.values()):
+            fail(f"tier: plain versions ran on the card: {plain}")
+        print(f"  streams equal their done bodies and the single-shot "
+              f"replies; kv_paged_write {counts['kv_paged_write']} = "
+              f"{forwards(st1)} forwards x {LAYERS}, no plain version; "
+              f"{st1['spec_ticks']} verify ticks of {st1['ticks']}",
+              flush=True)
+
+        print("  cancel: /cancel mid-decode, then a stream cut by its "
+              "client", flush=True)
+        long_p = p8[1]
+        code, full = post_all(url, [long_p], 256)[0]
+        if code != 200:
+            fail(f"long request: {code} {full}")
+        greedy = full["tokens"][len(long_p):]
+        res = {}
+        th = threading.Thread(target=lambda: res.update(r=http(
+            url, "/generate", {"input_ids": long_p.tolist(),
+                               "max_new_tokens": 256},
+            {"X-PTPU-Request-Id": "tier-cancel"})))
+        ticks = eng.stats()["ticks"]
+        th.start()
+        wait_until("the long request's decode", lambda: eng.stats()["ticks"]
+                   >= ticks + 3)
+        resil.arm_fault("replica_stall", 1, wedge_s=1.0)
+        code, body, _ = http(url, "/cancel", {"request_id": "tier-cancel"})
+        th.join(timeout=120)
+        if th.is_alive() or code != 200 or not body["cancelled"]:
+            fail(f"/cancel: {code} {body}")
+        code, body, _ = res["r"]
+        part = body.get("partial_tokens", [])
+        if (code != 409 or body["error"] != "cancelled" or not part
+                or len(part) >= 256 or part != greedy[:len(part)]):
+            fail(f"cancelled request: {code} {body}")
+        cancelled = eng.stats()["cancelled"]
+        ev = stream_generate(url, p8[2], 256, "tier-cut", cut_after=8)
+        wait_until("the cut stream's cancellation", lambda: (
+            eng.stats()["cancelled"] == cancelled + 1
+            and eng.stats()["active"] == 0))
+        eng._allocator.check()
+        st2 = eng.stats()
+        print(f"  cancelled mid-decode: 409 with {len(part)} partial "
+              f"tokens, a prefix of the uncancelled run's; the stream cut "
+              f"after {sum(len(e.get('t', [])) for e in ev)} tokens was "
+              f"cancelled; active {st2['active']}, pages in use "
+              f"{st2['pages_used']} (cached prefix "
+              f"{st2['pages_cached_prefix']}), allocator clean", flush=True)
+
+        m1, types = scrape(url)
+        missing = [f for f in TIER_FAMILIES if f not in types]
+        if missing:
+            fail(f"/metrics lacks {missing}")
+        back = [n for n in m0 if (n.endswith("_total") or
+                                  n.endswith("_count")) and m1[n] < m0[n]]
+        d = {n: m1[n] - m0.get(n, 0.0) for n in (
+            "ptpu_engine_ticks_total", "ptpu_engine_admits_total",
+            "ptpu_engine_retires_total", "ptpu_engine_cancels_total")}
+        want = {"ptpu_engine_ticks_total": st2["ticks"] - st0["ticks"],
+                "ptpu_engine_admits_total": st2["admitted"],
+                "ptpu_engine_retires_total": st2["completed"]
+                + st2["cancelled"],
+                "ptpu_engine_cancels_total": st2["cancelled"]}
+        if back or d != want:
+            fail(f"/metrics: counters went back {back}; deltas {d} != "
+                 f"stats {want}")
+        out["tick_model_eff"] = st2["tick_model_eff"]
+        print(f"  /metrics: {len(TIER_FAMILIES)} families present, counters "
+              f"monotone, deltas = stats {want}; TTFT p50 "
+              f"{out['ptpu_engine_ttft_ms'][0]:.2f} ms p99 "
+              f"{out['ptpu_engine_ttft_ms'][1]:.2f} ms, queue wait p50 "
+              f"{out['ptpu_engine_queue_wait_ms'][0]:.2f} ms p99 "
+              f"{out['ptpu_engine_queue_wait_ms'][1]:.2f} ms over the 8 "
+              "requests of the first pass, which arrive at once (bucket "
+              "estimates); last "
+              f"tick_model_eff {st2['tick_model_eff']} ({card})", flush=True)
+
+        print("  /admin/trace?duration_s=2&profile=1 over 8 requests",
+              flush=True)
+        rids = [f"tier-t{i}" for i in range(8)]
+        tr = {}
+        th = threading.Thread(target=lambda: tr.update(r=http(
+            url, "/admin/trace?duration_s=2&profile=1", {})))
+        th.start()
+        time.sleep(0.3)
+        replies = in_threads([
+            (lambda p=p, r=r: http(url, "/generate", {
+                "input_ids": p.tolist(), "max_new_tokens": MAX_NEW},
+                {"X-PTPU-Request-Id": r})) for p, r in zip(p8, rids)])
+        th.join(timeout=300)
+        code, doc, _ = tr["r"]
+        meta = doc.get("metadata", {})
+        if (code != 200 or "torch_profile_error" in meta
+                or any(c != 200 for c, _, _ in replies)):
+            fail(f"/admin/trace: {code} {meta}")
+        gen_ids = {e["args"].get("request_id") for e in doc["traceEvents"]
+                   if e["name"] == "serve.generate"}
+        n_tick = sum(e["name"] == "engine.tick" for e in doc["traceEvents"])
+        if not set(rids) <= gen_ids or not n_tick:
+            fail(f"trace: serve.generate ids {sorted(gen_ids)}, "
+                 f"{n_tick} engine.tick spans")
+        with open(os.path.join(meta["torch_profile_dir"], "trace.json")) as f:
+            kern = [e for e in json.load(f)["traceEvents"]
+                    if e.get("cat") == "kernel"]
+        n_kvp = sum("kv_paged_write" in e.get("name", "") for e in kern)
+        if not n_kvp:
+            fail(f"the profiler's trace names no kv_paged_write kernel "
+                 f"({len(kern)} kernels)")
+        print(f"  trace: {len(doc['traceEvents'])} spans, {n_tick} "
+              f"engine.tick, serve.generate for all 8 request ids; the "
+              f"profiler's trace holds {len(kern)} kernels, {n_kvp} of "
+              "them kv_paged_write", flush=True)
+
+        print("  drain: stop(drain_s=120) with one request in flight",
+              flush=True)
+        res = {}
+        th = threading.Thread(target=lambda: res.update(r=http(
+            url, "/generate", {"input_ids": p8[3].tolist(),
+                               "max_new_tokens": 128})))
+        th.start()
+        wait_until("the in-flight request", lambda: srv.inflight() >= 1
+                   and eng.stats()["active"] >= 1)
+        resil.arm_fault("replica_stall", 1, wedge_s=2.0)
+        stopper = threading.Thread(target=srv.stop,
+                                   kwargs={"drain_s": 120.0})
+        stopper.start()
+        wait_until("the drain", lambda: srv._draining)
+        code, body, hdr = http(url, "/generate", {
+            "input_ids": p8[0].tolist(), "max_new_tokens": 4})
+        if (code != 503 or body.get("error") != "draining"
+                or int(hdr.get("Retry-After", 0)) < 1):
+            fail(f"/generate while draining: {code} {body}")
+        th.join(timeout=300)
+        stopper.join(timeout=300)
+        code, body, _ = res["r"]
+        if (th.is_alive() or stopper.is_alive() or code != 200
+                or len(body["tokens"]) != len(p8[3]) + 128):
+            fail(f"the in-flight request across the drain: {code}")
+        st3 = eng.stats()
+        expect_launches(f"tier, whole phase (forwards {forwards(st3)} x "
+                        f"{LAYERS})", {n: w.launches for n, w in
+                                       wrappers.items()},
+                        kv_paged_write=forwards(st3) * LAYERS)
+        if any(plain.values()):
+            fail(f"tier: plain versions ran on the card: {plain}")
+        print("  the new request got 503 draining with Retry-After "
+              f"{hdr['Retry-After']}; the in-flight one finished, 200 with "
+              "all 128 tokens", flush=True)
+    finally:
+        restore()
+        srv.stop()
+        eng.stop()
+    release(torch)
+
+    print("  slot engine, bf16 cache (B4): 4 streams vs single-shot",
+          flush=True)
+    eng = pkg["Engine"](model, slots=8, max_len=L_SLICE,
+                        cache_dtype="bfloat16", tick_tokens=TICK)
+    srv = pkg["Server"](engine=eng, host="127.0.0.1", port=0,
+                        deadline_s=600).start()
+    url = f"http://{srv.host}:{srv.port}"
+    plain, restore = _count_plain([pkg["md"], pkg["cw"]])
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        p4 = p8[:4]
+        admit_together(eng, len(p4))
+        streams = in_threads([
+            (lambda p=p, i=i: stream_generate(url, p, MAX_NEW, f"slot-s{i}"))
+            for i, p in enumerate(p4)])
+        admit_together(eng, len(p4))
+        singles = post_all(url, p4, MAX_NEW)
+        check_streams("slot", p4, streams, singles, MAX_NEW)
+        st = eng.stats()
+        counts = {n: w.launches for n, w in wrappers.items()}
+        expect_launches(f"slot streams (mega = {st['ticks']} ticks x {TICK}"
+                        f" x {LAYERS})", counts,
+                        mega_decode_step=st["ticks"] * TICK * LAYERS)
+        if any(plain.values()):
+            fail(f"slot streams: plain versions ran on the card: {plain}")
+        print(f"  streams equal the single-shot replies; mega_decode_step "
+              f"{counts['mega_decode_step']} launches", flush=True)
+    finally:
+        restore()
+        srv.stop()
+        eng.stop()
+
+    print("  instrumentation cost: phase 4's serving with PADDLE_TPU_OBS off"
+          " and on, in turns (off, on, on, off three times)", flush=True)
+    ms = {False: [], True: []}
+    for on in (False, True, True, False) * 3:
+        obs.set_enabled(on)
+        try:
+            run = serve(torch, pkg, model, "bfloat16", p8, max_len=L_SLICE)
+        finally:
+            obs.set_enabled(None)
+        ms[on].append(run["ms_tick"])
+    out["ms_tick_obs"] = ms
+    med = {k: sorted(v)[len(v) // 2 - 1:len(v) // 2 + 1] for k, v in
+           ms.items()}
+    med = {k: sum(v) / 2 for k, v in med.items()}
+    out["ms_tick_median_obs_off_on"] = (med[False], med[True])
+    print(f"  ms a tick (host clock), obs off {ms[False]}, on {ms[True]}; "
+          f"medians {med[False]:.2f} / {med[True]:.2f} ({card})", flush=True)
+    del model
+    release(torch)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2704,6 +3151,11 @@ def main():
         # the module's name is shadowed by its flash_attention function
         nnfa = importlib.import_module(
             "paddle_tpu_torch.nn.functional.flash_attention")
+        # an earlier commit (``--serving`` copied into it) has no obs
+        tier = ({"obs": importlib.import_module("paddle_tpu_torch.obs"),
+                 "resil": importlib.import_module(
+                     "paddle_tpu_torch.distributed.resilience")}
+                if importlib.util.find_spec("paddle_tpu_torch.obs") else {})
     except ImportError as e:
         fail(f"cannot import paddle_tpu_torch (run from the repo root): {e}")
     pkg = {"md": md, "cw": cw, "fa": fa, "fb": fb, "ce": ce, "np": np,
@@ -2717,7 +3169,12 @@ def main():
            "BertCls": BertForSequenceClassification,
            "BertMLM": BertForMaskedLM, "bert_base": bert_base, "jit": jit,
            "Config": Config, "create_predictor": create_predictor,
-           "seed": seed, "nnfa": nnfa}
+           "seed": seed, "nnfa": nnfa, **tier}
+    # the flight recorder's and the profiler's files go to a directory of
+    # the run's own
+    obs_dir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    atexit.register(shutil.rmtree, obs_dir, True)
+    os.environ["PADDLE_TPU_OBS_DIR"] = obs_dir
     t_start = time.perf_counter()
 
     print("phase 1: card", flush=True)
@@ -2969,7 +3426,13 @@ def main():
     b1_oracle, b2_mlm = bert_oracle(torch, pkg)
     ft_counts, _, _ = bert_finetune(torch, pkg)
 
-    print("phase 22: summary", flush=True)
+    print("phase 22: serving tier: streamed /generate, /cancel, /drain, "
+          "/metrics, /admin/trace", flush=True)
+    if "obs" not in pkg:
+        fail("paddle_tpu_torch.obs is missing")
+    tier = serving_tier(torch, pkg, card, run9.get("first_ttft_ms"))
+
+    print("phase 23: summary", flush=True)
     main_b4 = b4_rows[("bf16", "serving-like pos")]
     main_b3 = b3_rows["int8 data"]
     main_b3p = b3p_rows[("bf16 pages", "decode")]
@@ -3130,6 +3593,7 @@ def main():
     print(f"  ERNIE-3.0-base Predictor.run latency, batch 1 x {ERNIE_S}: p50 "
           f"{ernie['p50']:.3f} ms, p99 {ernie['p99']:.3f} ms ({card})",
           flush=True)
+    print("  serving tier: " + json.dumps(tier) + f" ({card})", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -22,9 +22,14 @@ schedulers, ``nn.clip.ClipGradByGlobalNorm`` and ``jit.TrainStep``;
 sequence parallelism — ``distributed.init_mesh({"sp": n})`` (a
 single-controller mesh), ``ring_attention`` and ``ulysses_attention`` on
 the blockwise flash kernels, which GPT's and Llama's attention take under
-such a mesh.
+such a mesh; the serving tier's surface — streamed ``/generate``,
+``/cancel``, ``/drain``, ``/metrics``, ``/admin/trace``, the engine's
+warmup and the ``Config.enable_continuous_batching`` predictor — with
+the observability package (``obs``: metrics registry, spans, flight
+recorder) and the fault-injection half of ``distributed.resilience``.
 """
 from .device import resolve_device
 from .framework.random import seed
+from . import inference, obs  # noqa: E402  (paddle_tpu.inference parity)
 
-__all__ = ["resolve_device", "seed"]
+__all__ = ["resolve_device", "seed", "inference", "obs"]

@@ -1,10 +1,12 @@
 """Distributed parallelism (port of paddle_tpu/distributed/): the
-single-controller device mesh and sequence-parallel attention."""
+single-controller device mesh, sequence-parallel attention and the
+fault-injection half of ``resilience``."""
 from .mesh import (AXIS_ORDER, Mesh, get_mesh, init_mesh, mesh_axis_size,
                    set_mesh, use_mesh)
+from . import resilience
 from .sequence_parallel import (last_ring_dispatch, ring_attention,
                                 ulysses_attention)
 
 __all__ = ["AXIS_ORDER", "Mesh", "init_mesh", "get_mesh", "set_mesh",
            "use_mesh", "mesh_axis_size", "ring_attention",
-           "ulysses_attention", "last_ring_dispatch"]
+           "ulysses_attention", "last_ring_dispatch", "resilience"]

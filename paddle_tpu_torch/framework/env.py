@@ -7,7 +7,16 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["int_env", "float_env"]
+__all__ = ["bool_env", "int_env", "float_env"]
+
+
+def bool_env(name: str, default: bool) -> bool:
+    """Boolean env knob: unset -> ``default``; otherwise anything but
+    (case-insensitive) ``0``/``false``/``off``/empty counts as on."""
+    value = os.environ.get(name)
+    if value is None:
+        return default
+    return value.strip().lower() not in ("0", "false", "off", "")
 
 
 def float_env(name: str, default: float) -> float:

@@ -2,14 +2,17 @@
 continuous-batching engine and the HTTP server over both (port of
 paddle_tpu/inference/)."""
 from .engine import (CacheExhausted, ContinuousBatchingEngine,
-                     EngineOverloaded, RequestCancelled)
+                     EngineOverloaded, GenerationPredictor,
+                     RequestCancelled, create_engine_predictor)
 from .predictor import (Config, DataType, PrecisionType, Predictor,
                         PredictorPool, Tensor, create_predictor,
                         get_num_bytes_of_data_type, get_version)
 from .serve import PredictorServer
+from .speculative import NGramProposer, SpeculativeConfig
 
-__all__ = ["ContinuousBatchingEngine", "EngineOverloaded", "CacheExhausted",
-           "RequestCancelled", "PredictorServer", "Config", "Predictor",
-           "create_predictor", "Tensor", "DataType",
-           "PrecisionType", "PredictorPool", "get_version",
-           "get_num_bytes_of_data_type"]
+__all__ = ["Config", "Predictor", "create_predictor", "Tensor", "DataType",
+           "PrecisionType", "PredictorPool", "ContinuousBatchingEngine",
+           "EngineOverloaded", "CacheExhausted", "RequestCancelled",
+           "GenerationPredictor", "create_engine_predictor",
+           "SpeculativeConfig", "NGramProposer", "PredictorServer",
+           "get_version", "get_num_bytes_of_data_type"]

@@ -66,8 +66,32 @@ argmax, so output is token-identical to plain decode. Slot verify writes
 its k+1 rows per slot as plain tensor code; paged verify through
 ``kv_paged_write`` (N·(k+1) rows a half per launch).
 
+Streaming: ``submit(..., progress_cb=cb)`` calls ``cb(tokens)`` from the
+engine thread with each new block of a request's tokens — its first token
+at admission, then what each tick (or verify tick) emitted for it; a
+raising callback is dropped, never the loop. ``cancel(request_id)``
+retires a request at the next tick boundary with its partial result.
+
+Observability (``paddle_tpu_torch.obs``, on unless ``PADDLE_TPU_OBS=0``;
+the flag is read once, at construction): paddle_tpu's ``ptpu_engine_*``
+series (ticks, admits, retires, cancels, batch occupancy, the queue-wait,
+prefill, decode, TTFT and end-to-end histograms in ms; the page-pool and
+prefix series on a paged engine, the speculative ones on a speculative
+engine; ``ptpu_engine_tick_model_eff``, also ``stats()["tick_model_eff"]``)
+and the spans ``engine.queue_wait``, ``engine.prefill``, ``engine.decode``
+(carrying the request id, minted when the caller gave none) and
+``engine.tick``. Off, the engine allocates and records nothing for them.
+
+Warmup: nothing is compiled ahead of time here, so ``warmup()`` runs one
+admission per prefill bucket and one tick (and one verify tick on a
+speculative engine) on a scratch slot, which builds the kernels and
+initialises cuBLAS before the first request, then leaves the caches and
+the counters as a fresh engine's. ``compiled_program_count`` counts the
+distinct (program kind, bucket) pairs the engine has run: constant once
+warm, whatever prompt lengths arrive.
+
 Not ported yet (ROADMAP.md): the draft-model proposer, tensor
-parallelism, observability metrics, AOT warmup.
+parallelism, warmup through an executable store (``store=``).
 
 Env knobs as paddle_tpu's: PADDLE_TPU_SERVE_SLOTS (default 8),
 PADDLE_TPU_SERVE_PREFILL_BUCKETS (comma list, default powers of two),
@@ -82,6 +106,8 @@ from __future__ import annotations
 
 import os
 import threading
+import time
+import uuid
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -89,16 +115,20 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..device import resolve_device
+from ..distributed import resilience as _resil
 from ..framework.env import int_env
 from ..kernels.cache_write import kv_paged_write, kv_slot_write
 from ..kernels.mega_decode import mega_decode_step
 from ..models.generation import _select_token, fold_in, prng_key
+from ..obs import efficiency as _eff
 from .paging import PageAllocator, PrefixTrie, pages_needed
 from .speculative import NGramProposer, resolve_speculative, verify_step
 
 __all__ = ["ContinuousBatchingEngine", "EngineOverloaded",
-           "CacheExhausted", "RequestCancelled"]
+           "CacheExhausted", "RequestCancelled", "GenerationPredictor",
+           "create_engine_predictor"]
 
 
 class EngineOverloaded(RuntimeError):
@@ -183,7 +213,9 @@ class _Request:
     eos_token_id: Optional[int]
     seed: int = 0                # sampling key: prng_key(seed)
     future: Future = field(default_factory=Future)
-    rid: str = ""
+    rid: str = ""                # request id (cancel handle, obs spans)
+    t_submit: float = 0.0        # perf_counter at submit (obs only)
+    progress_cb: Optional[object] = None   # per-block streaming hook
     cancelled: bool = False      # cancel() flagged; retired at the next
     #                              tick boundary
     drafted: int = 0             # speculative: tokens proposed for me
@@ -194,7 +226,7 @@ class _Slot:
     """Host-side mirror of one decode slot."""
 
     __slots__ = ("req", "pos", "tok", "alive", "remaining", "emitted",
-                 "pages")
+                 "pages", "t_dec0")
 
     def __init__(self):
         self.req: Optional[_Request] = None
@@ -204,6 +236,7 @@ class _Slot:
         self.remaining = 0
         self.emitted: List[int] = []
         self.pages: List[int] = []   # paged mode: owned page refs
+        self.t_dec0 = 0.0            # decode-phase start (obs only)
 
     @property
     def free(self) -> bool:
@@ -335,26 +368,133 @@ class ContinuousBatchingEngine:
                                                cache_dtype)
         self._slots = [_Slot() for _ in range(self.slots)]
         self._queue: List[_Request] = []
-        self._cv = threading.Condition()
+        self._cv = _obs.make_condition("engine.cv")
         self._stop_flag = False
         self._broken: Optional[BaseException] = None
         self.ticks = 0
         self.admitted = 0
         self.completed = 0
         self.cancelled = 0
+        # (program kind, bucket) pairs run so far: compiled_program_count
+        self._programs = set()
+        self._warmed = False
+        self._warmup_lock = _obs.make_lock("engine.warmup")
+        self._warm_job = None         # a warmup() waiting for the loop
+        # last tick's modeled bytes/s as a fraction of the card's HBM
+        # bandwidth (0.0 before a tick, or with obs off)
+        self.last_tick_model_eff = 0.0
+        self._obs = _obs.enabled()
+        if self._obs:
+            self._init_obs()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="cb-engine")
         self._thread.start()
 
+    def _init_obs(self):
+        """Register paddle_tpu's engine series (names, help strings,
+        buckets and the paged / speculative conditions as its engine's)
+        and price one tick's modeled bytes."""
+        reg = _obs.metrics.registry
+        self._g_mesh_devices = reg.gauge(
+            "ptpu_engine_mesh_devices",
+            "devices in this engine's mesh slice (1 = single-chip; "
+            "the tier sum over replicas is total serving chips)")
+        self._g_mesh_devices.set(1)
+        self._m_ticks = reg.counter(
+            "ptpu_engine_ticks_total", "batched decode ticks")
+        self._m_admits = reg.counter(
+            "ptpu_engine_admits_total", "requests admitted to slots")
+        self._m_retires = reg.counter(
+            "ptpu_engine_retires_total", "requests retired")
+        self._m_cancels = reg.counter(
+            "ptpu_engine_cancels_total",
+            "requests cancelled (queued or mid-decode; slot and "
+            "pages reclaimed)")
+        self._m_occupancy = reg.histogram(
+            "ptpu_engine_batch_occupancy", "live slots per decode tick",
+            buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128))
+        self._m_queue_wait = reg.histogram(
+            "ptpu_engine_queue_wait_ms", "submit -> admission start")
+        self._m_prefill = reg.histogram(
+            "ptpu_engine_prefill_ms",
+            "admission program incl. first-token sync")
+        self._m_decode = reg.histogram(
+            "ptpu_engine_decode_ms", "first token -> retirement")
+        self._m_ttft = reg.histogram(
+            "ptpu_engine_ttft_ms", "submit -> first token")
+        self._m_e2e = reg.histogram(
+            "ptpu_engine_e2e_ms", "submit -> retirement")
+        if self.paged:
+            self._g_pages_free = reg.gauge(
+                "ptpu_engine_pages_free", "KV pool pages free")
+            self._g_pages_used = reg.gauge(
+                "ptpu_engine_pages_used", "KV pool pages in use")
+            self._set_page_gauges()
+            self._m_prefix_hits = reg.counter(
+                "ptpu_engine_prefix_hits_total",
+                "admissions reusing >=1 cached prefix page")
+            self._m_prefix_misses = reg.counter(
+                "ptpu_engine_prefix_misses_total",
+                "admissions with no cached prefix page")
+        if self._spec is not None:
+            self._m_spec_ticks = reg.counter(
+                "ptpu_engine_spec_ticks_total",
+                "draft->verify tick dispatches")
+            self._m_spec_drafted = reg.counter(
+                "ptpu_engine_spec_drafted_total",
+                "draft tokens proposed to verify")
+            self._m_spec_accepted = reg.counter(
+                "ptpu_engine_spec_accepted_total",
+                "draft tokens accepted by the target")
+            self._m_spec_rejected = reg.counter(
+                "ptpu_engine_spec_rejected_total",
+                "draft tokens rejected by the target")
+            self._m_spec_per_tick = reg.histogram(
+                "ptpu_engine_spec_accepted_per_tick",
+                "tokens emitted per slot per verify tick "
+                "(accepted prefix + correction)",
+                buckets=tuple(range(0, self._spec.k + 2)))
+        # one tick's modeled bytes (obs.efficiency), priced once: the
+        # per-tick cost is a division and a gauge set
+        geom = {"tick_tokens": self.tick_tokens,
+                "param_bytes": _eff.tree_nbytes(
+                    [*self.model.parameters(), *self.model.buffers()]),
+                "kv_cache_bytes": _eff.tree_nbytes(self._caches)}
+        if self.paged:
+            geom["kv_view_bytes"] = sum(
+                leaf.nbytes // leaf.shape[0] * self.pages_per_slot
+                * self.slots
+                for kc, vc in self._caches for half in (kc, vc)
+                for leaf in half.values())
+        self._tick_model_bytes = _eff.modeled_tick_bytes(
+            "decode_paged" if self.paged else "decode", geom)
+        self._verify_model_bytes = (_eff.modeled_tick_bytes("verify", geom)
+                                    if self._spec is not None else 0)
+        self._eff_chip = _eff.chip_spec()
+        self._g_tick_eff = reg.gauge(
+            _eff.TICK_EFF_GAUGE,
+            "decode tick modeled-bytes/s over measured wall time, "
+            "as a fraction of the efficiency chip's HBM bandwidth")
+
+    def _set_page_gauges(self):
+        self._g_pages_free.set(self._allocator.free_pages)
+        self._g_pages_used.set(self._allocator.used_pages)
+
     # -- public API ------------------------------------------------------
     def submit(self, input_ids, max_new_tokens: int = 32,
                eos_token_id: Optional[int] = None, seed: int = 0,
-               request_id: Optional[str] = None) -> Future:
+               request_id: Optional[str] = None,
+               progress_cb=None) -> Future:
         """Queue one request; returns a Future resolving to an int64
         [prompt_len + max_new_tokens] array, eos-padded after finish —
         one row of ``generate()``. ``seed`` keys a sampling engine's draws
         for this request (ignored when greedy). ``request_id`` is the
-        handle ``cancel`` takes."""
+        handle ``cancel`` takes and the id of the request's spans (minted
+        when absent and obs is on). ``progress_cb(tokens)`` is called from
+        the engine thread with each new block of tokens (the first at
+        admission, then per tick); it must be fast, and one that raises is
+        dropped, never the engine loop."""
+        _resil.maybe_inject("serve_backend")   # dead-backend fault site
         prompt = np.asarray(input_ids).astype(np.int64).reshape(-1)
         P = prompt.shape[0]
         if P < 1:
@@ -380,7 +520,12 @@ class ContinuousBatchingEngine:
                 f"engine cache length {self.max_len}")
         req = _Request(prompt, int(max_new_tokens),
                        None if eos_token_id is None else int(eos_token_id),
-                       int(seed), rid=str(request_id) if request_id else "")
+                       int(seed), rid=str(request_id) if request_id else "",
+                       progress_cb=progress_cb)
+        if self._obs:
+            if not req.rid:
+                req.rid = uuid.uuid4().hex[:16]
+            req.t_submit = time.perf_counter()
         with self._cv:
             if self._broken is not None:
                 raise RuntimeError("engine is broken") from self._broken
@@ -442,11 +587,26 @@ class ContinuousBatchingEngine:
                         return True
                 return False
             self.cancelled += 1
+        # resolve outside the lock: future callbacks never run under it
         victim.future._ptpu_gen_info = {"tokens_generated": 0,
                                         "partial_tokens": []}
+        if self._obs:
+            self._m_cancels.inc()
         if not victim.future.done():
             victim.future.set_exception(RequestCancelled(rid, 0))
         return True
+
+    def _notify_progress(self, req: _Request, toks) -> None:
+        """Hand newly emitted tokens to the request's progress callback
+        (on the engine thread). A raising callback is dropped so that it
+        cannot take the loop, and every other slot, down."""
+        cb = req.progress_cb
+        if cb is None:
+            return
+        try:
+            cb([int(t) for t in toks])
+        except Exception:   # noqa: BLE001 — a broken stream is the
+            req.progress_cb = None   # caller's problem, not the loop's
 
     def stats(self) -> dict:
         """Slot occupancy, queue, lifetime counters, the paged pool and
@@ -461,11 +621,17 @@ class ContinuousBatchingEngine:
                "free": self.slots - active, "queued": queued,
                "max_queue": self.max_queue, "ticks": self.ticks,
                "admitted": self.admitted, "completed": self.completed,
-               "cancelled": cancelled, "tick_tokens": self.tick_tokens,
+               "cancelled": cancelled,
+               "compiled_programs": self.compiled_program_count,
+               "tick_tokens": self.tick_tokens,
                "prefill_buckets": list(self.prefill_buckets),
                "max_len": self.max_len, "cache_dtype": self.cache_dtype,
                "paged": self.paged,
                "speculative": self._spec.kind if self._spec else None,
+               "tp": 1, "mesh_devices": 1,
+               # last tick's modeled bytes/s over the card's bandwidth
+               # (0.0 before the first tick, or with obs off)
+               "tick_model_eff": round(self.last_tick_model_eff, 6),
                "device": str(self.device)}
         if self.paged:
             out["kernel_launches"] = {
@@ -519,6 +685,49 @@ class ContinuousBatchingEngine:
     def broken(self) -> Optional[BaseException]:
         return self._broken
 
+    @property
+    def compiled_program_count(self) -> int:
+        """Distinct (program kind, bucket) pairs this engine has run —
+        admission per prefill bucket, the decode tick, the verify tick,
+        the copy-on-write page copy. paddle_tpu counts XLA traces here;
+        the port compiles nothing per shape, and this count plays the same
+        part: constant once warm, whatever prompt lengths arrive."""
+        return len(self._programs)
+
+    @property
+    def warm(self) -> bool:
+        """True once ``warmup()`` finished or the first tick ran."""
+        return self._warmed or self.ticks > 0
+
+    def warmup(self, buckets: Optional[tuple] = None, store=None) -> list:
+        """Run one admission per prefill bucket (``buckets``: the
+        engine's when None), one decode tick and, on a speculative engine,
+        one verify tick on a scratch slot, so that the kernels are built
+        and cuBLAS initialised before the first request. Runs on the
+        engine thread once every slot is free (admissions wait for it),
+        then leaves the caches, the page pool and every counter as a fresh
+        engine's. Returns the buckets it ran. ``store`` (paddle_tpu's
+        executable store) is not ported: with CUDA graphs of the tick,
+        ROADMAP.md A8."""
+        if store is not None:
+            _not_ported("warmup through an executable store (store=)")
+        bs = sorted({self._bucket_for(int(b)) for b in (
+            buckets if buckets is not None else self.prefill_buckets)})
+        job = {"buckets": bs, "done": threading.Event(), "error": None}
+        with self._warmup_lock:           # one warmup at a time
+            with self._cv:
+                if self._broken is not None:
+                    raise RuntimeError("engine is broken") from self._broken
+                if self._stop_flag:
+                    raise RuntimeError("engine stopped")
+                self._warm_job = job
+                self._cv.notify()
+            job["done"].wait()
+        if job["error"] is not None:
+            raise RuntimeError("warmup failed") from job["error"]
+        self._warmed = True
+        return bs
+
     def stop(self):
         with self._cv:
             self._stop_flag = True
@@ -526,18 +735,29 @@ class ContinuousBatchingEngine:
         self._thread.join(timeout=30)
         self._fail_all(RuntimeError("engine stopped"))
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.stop()
+        return False
+
     # -- engine loop -----------------------------------------------------
     def _loop(self):
         with torch.no_grad():
             while True:
                 with self._cv:
                     while (not self._stop_flag and not self._queue
+                           and self._warm_job is None
                            and all(s.free for s in self._slots)):
                         self._cv.wait(timeout=1.0)
                     if self._stop_flag:
                         return
                 try:
                     self._sweep_cancelled()
+                    if (self._warm_job is not None
+                            and all(s.free for s in self._slots)):
+                        self._run_warmup()
                     self._admit_ready()
                     if any(not s.free for s in self._slots):
                         self._tick()
@@ -564,6 +784,7 @@ class ContinuousBatchingEngine:
 
     def _fail_all(self, exc: BaseException):
         with self._cv:
+            job, self._warm_job = self._warm_job, None
             pending = [(req, []) for req in self._queue]
             self._queue.clear()
             for s in self._slots:
@@ -578,13 +799,89 @@ class ContinuousBatchingEngine:
                 "tokens_generated": len(emitted),
                 "partial_tokens": [int(t) for t in emitted]}
             req.future.set_exception(exc)
+        if job is not None:
+            job["error"] = exc
+            job["done"].set()
+
+    def _run_warmup(self):
+        """The pending ``warmup()``, on the engine thread with every slot
+        free: slot 0 (paged: pages taken from the pool, evicting cached
+        prefixes if it must) is the scratch slot; each bucket's prefill of
+        zeros at position 0, then one tick from position 0 with slot 0
+        live alone. Afterwards the scratch rows or pages are zeroed and
+        the pages returned."""
+        job = self._warm_job
+        dev = self.device
+        scratch = _Request(np.zeros(1, np.int64), 1, None)
+        pages = None
+        if self.paged:
+            need = self.pages_per_slot
+            pages = self._allocator.alloc(need)
+            if pages is None:
+                # no slot holds pages, so only the trie's can be in use
+                self._trie.evict(need - self._allocator.free_pages)
+                pages = self._allocator.alloc(need)
+            self._block_tables[0, :] = pages
+        try:
+            for b in job["buckets"]:
+                ids = torch.zeros((1, b), dtype=torch.int64, device=dev)
+                if self.paged:
+                    bt = torch.from_numpy(self._block_tables[:1]).to(dev)
+                    caches = _attach_page_meta(self._caches, bt=bt, wlen=b)
+                    try:
+                        logits, _ = self.model(ids, caches, 0)
+                    finally:
+                        _strip_page_meta(self._caches)
+                else:
+                    logits, _ = self.model(ids, self._slot_view(0), 0)
+                self._first_token(logits[:, b - 1], scratch)
+                self._programs.add(("admit", b))
+            if self.paged and len(pages) > 1:
+                self._copy_page(pages[0], pages[1])
+                self._programs.add(("copy_page", 0))
+            N = self.slots
+            zeros = np.zeros(N, np.int32)
+            live = np.zeros(N, bool)
+            live[0] = True
+            keys = (np.zeros((N, 2), np.int64) if self._sampling[0]
+                    else None)
+            self._decode_forward(zeros, zeros, live, np.full(N, -1, np.int32),
+                                 keys)
+            if self._spec is not None:
+                dlen = zeros.copy()
+                dlen[0] = 1
+                self._verify_forward(zeros, zeros, live,
+                                     np.zeros((N, self._spec.k), np.int32),
+                                     dlen)
+        finally:
+            if self.paged:
+                idx = torch.tensor(pages, dtype=torch.int64, device=dev)
+                for kc, vc in self._caches:
+                    for leaf in (*kc.values(), *vc.values()):
+                        leaf.index_fill_(0, idx, 0)
+                self._block_tables[0] = 0
+                self._allocator.decref(pages)
+                if self._obs:
+                    self._set_page_gauges()
+            else:
+                for kc, vc in self._caches:
+                    for leaf in (kc, vc):
+                        for t in (leaf.values() if isinstance(leaf, dict)
+                                  else (leaf,)):
+                            t.zero_()
+        with self._cv:
+            self._warm_job = None
+        job["done"].set()
 
     def _admit_ready(self):
         while True:
             with self._cv:
                 slot_idx = next((i for i, s in enumerate(self._slots)
                                  if s.free), None)
-                if slot_idx is None or not self._queue:
+                if (slot_idx is None or not self._queue
+                        or self._warm_job is not None):
+                    # a pending warmup holds admissions until the slots
+                    # drain and it has run
                     return
                 req = self._queue.pop(0)
             if not self._admit(req, slot_idx):
@@ -620,10 +917,12 @@ class ContinuousBatchingEngine:
         """Admit ``req`` into slot ``b`` and take its first token; False
         when the paged pool cannot cover it yet (nothing changed)."""
         P = req.prompt.shape[0]
+        t_adm = time.perf_counter() if self._obs else 0.0
         if self.paged:
-            tok0 = self._admit_paged(req, b)
-            if tok0 is None:
+            res = self._admit_paged(req, b)
+            if res is None:
                 return False
+            tok0, bucket = res
         else:
             # reset slot b's rows, prefill the bucketed prompt into them
             view = self._slot_view(b)
@@ -632,8 +931,10 @@ class ContinuousBatchingEngine:
                     for t in (leaf.values() if isinstance(leaf, dict)
                               else (leaf,)):
                         t.zero_()
+            bucket = self._bucket_for(P)
             logits, _ = self.model(self._padded_ids(req.prompt), view, 0)
             tok0 = self._first_token(logits[:, P - 1], req)
+            self._programs.add(("admit", bucket))
         slot = self._slots[b]
         slot.req = req
         slot.pos = P
@@ -642,6 +943,23 @@ class ContinuousBatchingEngine:
         slot.remaining = req.max_new_tokens - 1
         slot.alive = req.eos_token_id is None or tok0 != req.eos_token_id
         self.admitted += 1
+        self._notify_progress(req, [tok0])
+        if self._obs:
+            # the request's contiguous phases: queue wait (submit ->
+            # admission), prefill (admission + the first-token sync), then
+            # decode (-> retirement); their sum is the engine's end-to-end
+            now = time.perf_counter()
+            slot.t_dec0 = now
+            self._m_admits.inc()
+            self._m_queue_wait.observe((t_adm - req.t_submit) * 1e3)
+            self._m_prefill.observe((now - t_adm) * 1e3)
+            self._m_ttft.observe((now - req.t_submit) * 1e3)
+            _obs.record_span("engine.queue_wait", req.t_submit, t_adm,
+                             cat="engine", request_id=req.rid)
+            _obs.record_span("engine.prefill", t_adm, now, cat="engine",
+                             request_id=req.rid, bucket=bucket,
+                             prompt_len=P,
+                             ttft_ms=round((now - req.t_submit) * 1e3, 3))
         if slot.remaining <= 0 or not slot.alive:
             self._retire(b)
         return True
@@ -664,9 +982,9 @@ class ContinuousBatchingEngine:
         """Paged admission: prefix-trie match, page allocation (evicting
         trie-only pages under pressure), tail-page copy-on-write when the
         whole prompt matched, then one prefill of the un-cached suffix
-        straight into the slot's pages. Returns the first token, or None
-        when the pool cannot cover the request yet (pool state rolled back
-        exactly)."""
+        straight into the slot's pages. Returns (first token, prefill
+        bucket), or None when the pool cannot cover the request yet (pool
+        state rolled back exactly)."""
         prompt, ps = req.prompt, self.page_size
         P = prompt.shape[0]
         n_complete = P // ps          # prompt pages shareable read-only
@@ -702,8 +1020,10 @@ class ContinuousBatchingEngine:
         self._block_tables[b, :len(pages)] = pages
         if cow_src is not None:
             self._copy_page(cow_src, pages[n_complete - 1])
+            self._programs.add(("copy_page", 0))
         suffix = prompt[M:]
         S = suffix.shape[0]
+        bucket = self._bucket_for(S)
         bt = torch.from_numpy(self._block_tables[b:b + 1]).to(self.device)
         caches = _attach_page_meta(self._caches, bt=bt, wlen=S)
         try:
@@ -711,6 +1031,7 @@ class ContinuousBatchingEngine:
         finally:
             _strip_page_meta(self._caches)
         tok0 = self._first_token(logits[:, S - 1], req)
+        self._programs.add(("admit", bucket))
         self._slots[b].pages = pages
         if self.prefix_cache:
             # freshly computed complete pages become shareable; cached
@@ -722,13 +1043,19 @@ class ContinuousBatchingEngine:
         else:
             self.prefix_misses += 1
         self.prefill_tokens += S
-        return tok0
+        if self._obs:
+            (self._m_prefix_hits if m else self._m_prefix_misses).inc()
+            self._set_page_gauges()
+        return tok0, bucket
 
     def _tick(self):
         """One tick: plain decode, or — speculative — draft then verify.
         A speculative engine whose slots have nothing to draft runs the
         plain tick (tick_tokens per forward) instead of a verify forward
         that can emit only one token per slot."""
+        # straggler fault site: wedges this loop (the process stays alive,
+        # /healthz answers, only token progress stops)
+        _resil.maybe_inject("replica_stall")
         if self._spec is None:
             self._tick_decode()
             return
@@ -788,11 +1115,10 @@ class ContinuousBatchingEngine:
         s.tok = s.emitted[-1]
         return n
 
-    def _tick_verify(self, props, dlen):
-        """One draft -> verify tick: ONE forward scores all k+1 positions
-        for every slot; each live slot consumes its accepted prefix plus
-        the correction token (1..k+1 tokens), all target argmaxes."""
-        tok, pos, live, _ = self._tick_inputs()
+    def _verify_forward(self, tok, pos, live, props, dlen):
+        """ONE verify forward of every slot's ``[tok, d1..dk]`` block from
+        host arrays; returns (toks [N, k+1], n_acc [N]) numpy (one host
+        sync)."""
         dev = self.device
         args = [torch.from_numpy(a).to(dev) for a in (tok, pos, props,
                                                       dlen)]
@@ -808,10 +1134,23 @@ class ContinuousBatchingEngine:
         finally:
             if self.paged:
                 _strip_page_meta(self._caches)
-        toks = toks_d.cpu().numpy()               # one host sync per tick
-        n_acc = acc_d.cpu().numpy()
+        self._programs.add(("verify", 0))
+        return toks_d.cpu().numpy(), acc_d.cpu().numpy()
+
+    def _tick_verify(self, props, dlen):
+        """One draft -> verify tick: ONE forward scores all k+1 positions
+        for every slot; each live slot consumes its accepted prefix plus
+        the correction token (1..k+1 tokens), all target argmaxes."""
+        tok, pos, live, _ = self._tick_inputs()
+        t_tick = time.perf_counter() if self._obs else 0.0
+        toks, n_acc = self._verify_forward(tok, pos, live, props, dlen)
         self.ticks += 1
         self.spec_ticks += 1
+        if self._obs:
+            self._m_spec_ticks.inc()
+            # the verify dispatch moves the single-pass bound's bytes
+            self._observe_tick(t_tick, int(live.sum()),
+                               self._verify_model_bytes, spec=True)
         for i, s in enumerate(self._slots):
             if s.free or not live[i]:
                 continue
@@ -823,14 +1162,40 @@ class ContinuousBatchingEngine:
             s.req.accepted += accepted
             # rejected positions' rows sit above the new pos and are
             # overwritten before any query attends them: no rollback
-            self.spec_tokens_emitted += self._consume(
-                i, toks[i, :accepted + 1])
+            n = self._consume(i, toks[i, :accepted + 1])
+            if n:
+                self._notify_progress(s.req, s.emitted[-n:])
+            self.spec_tokens_emitted += n
             self.spec_slot_ticks += 1
+            if self._obs:
+                self._m_spec_drafted.inc(drafted)
+                self._m_spec_accepted.inc(accepted)
+                self._m_spec_rejected.inc(drafted - accepted)
+                self._m_spec_per_tick.observe(n)
             if s.remaining <= 0 or not s.alive:
                 self._retire(i)
 
-    def _tick_decode(self):
-        tok, pos, live, eos = self._tick_inputs()
+    def _observe_tick(self, t_tick: float, n_live: int, model_bytes: int,
+                      spec: bool = False):
+        """A tick's series, its model efficiency and its span (obs on)."""
+        now = time.perf_counter()
+        self._m_ticks.inc()
+        self._m_occupancy.observe(n_live)
+        if now > t_tick:
+            self.last_tick_model_eff = _eff.model_bandwidth_eff(
+                model_bytes, now - t_tick, self._eff_chip)
+            self._g_tick_eff.set(self.last_tick_model_eff)
+        if spec:
+            _obs.record_span("engine.tick", t_tick, now, cat="engine",
+                             active=n_live, tick=self.ticks, spec=True)
+        else:
+            _obs.record_span("engine.tick", t_tick, now, cat="engine",
+                             active=n_live, tick=self.ticks)
+
+    def _decode_forward(self, tok, pos, live, eos, keys):
+        """``tick_tokens`` micro-steps for every slot from host arrays
+        (``keys``: the slots' sampling keys, None when greedy); returns
+        the emitted tokens [N, tick_tokens] numpy (one host sync)."""
         dev = self.device
         tok_d = torch.from_numpy(tok).to(dev)
         pos_d = torch.from_numpy(pos).to(dev)
@@ -839,14 +1204,9 @@ class ContinuousBatchingEngine:
         bt_d = (torch.from_numpy(self._block_tables).to(dev) if self.paged
                 else None)
         do_sample = self._sampling[0]
-        if do_sample:
-            # each busy slot's request key; the position is folded in on
-            # the device, micro-step by micro-step
-            keys = np.zeros((self.slots, 2), np.int64)
-            for i, s in enumerate(self._slots):
-                if not s.free:
-                    keys[i] = prng_key(s.req.seed).numpy()
-            keys_d = torch.from_numpy(keys).to(dev)
+        # the position is folded into each slot's key on the device,
+        # micro-step by micro-step
+        keys_d = torch.from_numpy(keys).to(dev) if do_sample else None
         zero = torch.zeros_like(tok_d)
         emitted = []
         for _ in range(self.tick_tokens):
@@ -871,12 +1231,29 @@ class ContinuousBatchingEngine:
             pos_d = pos_d + live_d.to(torch.int32)
             tok_d = torch.where(live_d, nxt, tok_d)
             live_d = live_d & (nxt != eos_d)
-        toks = torch.stack(emitted, dim=1).cpu().numpy()   # one sync/tick
+        self._programs.add(("decode", 0))
+        return torch.stack(emitted, dim=1).cpu().numpy()   # one sync/tick
+
+    def _tick_decode(self):
+        tok, pos, live, eos = self._tick_inputs()
+        keys = None
+        if self._sampling[0]:
+            keys = np.zeros((self.slots, 2), np.int64)
+            for i, s in enumerate(self._slots):
+                if not s.free:
+                    keys[i] = prng_key(s.req.seed).numpy()
+        t_tick = time.perf_counter() if self._obs else 0.0
+        toks = self._decode_forward(tok, pos, live, eos, keys)
         self.ticks += 1
+        if self._obs:
+            self._observe_tick(t_tick, int(live.sum()),
+                               self._tick_model_bytes)
         for i, s in enumerate(self._slots):
             if s.free or not live[i]:
                 continue
-            self._consume(i, toks[i])
+            n = self._consume(i, toks[i])
+            if n:
+                self._notify_progress(s.req, s.emitted[-n:])
             if s.remaining <= 0 or not s.alive:
                 self._retire(i)
 
@@ -894,6 +1271,16 @@ class ContinuousBatchingEngine:
                 slot.pages = []
                 self._block_tables[b] = 0
                 self._pool_blocked = False    # freed pages: retry the head
+                if self._obs:
+                    self._set_page_gauges()
+        if self._obs:
+            now = time.perf_counter()
+            self._m_retires.inc()
+            self._m_decode.observe((now - slot.t_dec0) * 1e3)
+            self._m_e2e.observe((now - req.t_submit) * 1e3)
+            _obs.record_span("engine.decode", slot.t_dec0, now,
+                             cat="engine", request_id=req.rid,
+                             tokens=len(slot.emitted))
         out = list(slot.emitted)
         info = {"tokens_generated": len(out)}
         if self._spec is not None:
@@ -904,6 +1291,8 @@ class ContinuousBatchingEngine:
             req.future._ptpu_gen_info = info
             with self._cv:
                 self.cancelled += 1
+            if self._obs:
+                self._m_cancels.inc()
             if not req.future.done():
                 req.future.set_exception(RequestCancelled(req.rid, len(out)))
             return
@@ -914,3 +1303,44 @@ class ContinuousBatchingEngine:
         self.completed += 1
         if not req.future.done():
             req.future.set_result(result)
+
+
+# ---------------------------------------------------------------------------
+# Config -> create_predictor (inference/predictor.py delegates here when
+# Config.enable_continuous_batching was called)
+# ---------------------------------------------------------------------------
+
+class GenerationPredictor:
+    """Predictor-shaped facade over a ContinuousBatchingEngine, so serving
+    code written against Config -> create_predictor drives the engine: one
+    named int64 input, one named tokens output."""
+
+    def __init__(self, engine: ContinuousBatchingEngine):
+        self.engine = engine
+
+    def generate(self, input_ids, max_new_tokens: int = 32, **kw):
+        return self.engine.generate(input_ids, max_new_tokens, **kw)
+
+    def get_input_names(self):
+        return ["input_ids"]
+
+    def get_output_names(self):
+        return ["tokens"]
+
+    def close(self):
+        self.engine.stop()
+
+
+def create_engine_predictor(config) -> GenerationPredictor:
+    """The engine behind ``Config.enable_continuous_batching``'s options,
+    on the live model's device."""
+    opts = dict(config._engine_opts)
+    model = opts.pop("model", None)
+    if model is None:
+        raise ValueError(
+            "Config.enable_continuous_batching needs a live model: the "
+            "generation loop (cache-threaded forward + new_cache) cannot "
+            "be rebuilt from a saved program — pass "
+            "enable_continuous_batching(model=the_causal_lm)")
+    return GenerationPredictor(ContinuousBatchingEngine(
+        model, device=model.device, **opts))

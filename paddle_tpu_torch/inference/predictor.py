@@ -11,9 +11,13 @@ output names ``out0, out1, ...`` (the program's outputs, flattened).
 ``copy_to_cpu`` returns numpy arrays; a bf16 output comes back as float32
 (exact), since numpy has no bfloat16.
 
-Not ported (ROADMAP.md): ``Config.enable_int8`` (the int8 predictor) and
-``Config.enable_continuous_batching`` (the engine predictor); both raise.
-The reference's other GPU/TensorRT/MKLDNN knobs are accepted no-ops.
+``Config.enable_continuous_batching(model=...)`` makes ``create_predictor``
+return a ``GenerationPredictor`` over a ``ContinuousBatchingEngine`` on the
+live model's device, as paddle_tpu's does.
+
+Not ported (ROADMAP.md): ``Config.enable_int8`` (the int8 predictor)
+raises. The reference's other GPU/TensorRT/MKLDNN knobs are accepted
+no-ops.
 """
 from __future__ import annotations
 
@@ -43,12 +47,26 @@ class Config:
         self._params_file = params_file
         self._device = "gpu"
         self._device_id = 0
+        self._engine_opts: Optional[Dict[str, object]] = None
 
-    def enable_continuous_batching(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Config.enable_continuous_batching (the engine predictor) is "
-            "not ported yet — see ROADMAP.md; serve generate() traffic "
-            "with PredictorServer(engine=ContinuousBatchingEngine(...))")
+    def enable_continuous_batching(self, model=None, slots=None,
+                                   max_len=None, cache_dtype="bfloat16",
+                                   prefill_buckets=None, tick_tokens=None,
+                                   max_queue=None, do_sample=False,
+                                   temperature=1.0, top_k=0, top_p=1.0):
+        """Serve generate() traffic through the continuous-batching
+        engine: ``create_predictor`` then returns a
+        ``GenerationPredictor``. ``model`` is the live causal LM (the
+        decode loop cannot be rebuilt from a saved program); the engine
+        runs on its device."""
+        self._engine_opts = {
+            "model": model, "slots": slots, "max_len": max_len,
+            "cache_dtype": cache_dtype,
+            "prefill_buckets": prefill_buckets,
+            "tick_tokens": tick_tokens, "max_queue": max_queue,
+            "do_sample": do_sample, "temperature": temperature,
+            "top_k": top_k, "top_p": top_p,
+        }
 
     # -- model location --------------------------------------------------
     def set_model(self, prog_file: str, params_file: Optional[str] = None):
@@ -224,7 +242,12 @@ class Predictor:
 
 
 def create_predictor(config: Config):
-    """paddle_infer.create_predictor."""
+    """paddle_infer.create_predictor; with
+    ``Config.enable_continuous_batching`` the engine-backed
+    ``GenerationPredictor`` instead of a ``Predictor``."""
+    if getattr(config, "_engine_opts", None):
+        from .engine import create_engine_predictor
+        return create_engine_predictor(config)
     return Predictor(config)
 
 

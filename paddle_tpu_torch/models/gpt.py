@@ -29,6 +29,7 @@ from ..distributed.mesh import mesh_axis_size
 from ..distributed.sequence_parallel import ring_attention
 from ..nn import Dropout, Embedding, LayerNorm, Linear
 from ..nn import functional as F
+from ..nn.layer.common import _no_default_init
 from .generation import new_kv_caches, new_paged_kv_caches
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
@@ -215,9 +216,11 @@ class GPTForCausalLM(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.gpt = GPTModel(cfg)
-        self.lm_head = (None if cfg.tie_embeddings else
-                        Linear(cfg.hidden_size, cfg.vocab_size, bias=False))
+        with _no_default_init():          # the draw below is the only one
+            self.gpt = GPTModel(cfg)
+            self.lm_head = (None if cfg.tie_embeddings else
+                            Linear(cfg.hidden_size, cfg.vocab_size,
+                                   bias_attr=False))
         gen = torch.Generator().manual_seed(int(seed))
         with torch.no_grad():
             for name, p in self.named_parameters():

@@ -130,10 +130,10 @@ class LlamaAttention(nn.Module):
         self.kv_heads = nkv
         self.head_dim = h // nh
         self.theta = cfg.rope_theta
-        self.q_proj = Linear(h, nh * self.head_dim, bias=False)
-        self.k_proj = Linear(h, nkv * self.head_dim, bias=False)
-        self.v_proj = Linear(h, nkv * self.head_dim, bias=False)
-        self.o_proj = Linear(nh * self.head_dim, h, bias=False)
+        self.q_proj = Linear(h, nh * self.head_dim, bias_attr=False)
+        self.k_proj = Linear(h, nkv * self.head_dim, bias_attr=False)
+        self.v_proj = Linear(h, nkv * self.head_dim, bias_attr=False)
+        self.o_proj = Linear(nh * self.head_dim, h, bias_attr=False)
 
     def forward(self, x, cache=None, pos=None):
         B, S, _ = x.shape
@@ -164,9 +164,9 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         h, m = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = Linear(h, m, bias=False)
-        self.up_proj = Linear(h, m, bias=False)
-        self.down_proj = Linear(m, h, bias=False)
+        self.gate_proj = Linear(h, m, bias_attr=False)
+        self.up_proj = Linear(h, m, bias_attr=False)
+        self.down_proj = Linear(m, h, bias_attr=False)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -246,7 +246,7 @@ class LlamaForCausalLM(nn.Module):
         with torch.device("meta"):
             self.llama = LlamaModel(cfg)
             self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
-                                  bias=False)
+                                  bias_attr=False)
         self.to_empty(device=dev)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         with torch.no_grad():

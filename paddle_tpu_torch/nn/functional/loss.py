@@ -59,7 +59,7 @@ def _fused_hard_label(logits, idx, ignore_index, reduction):
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
-                  use_softmax=True, label_smoothing=0.0):
+                  use_softmax=True, label_smoothing=0.0, name=None):
     """paddle's ``cross_entropy``: ``input`` logits ``[..., C]`` (class
     axis ``axis``); ``label`` integer indices ``[...]`` or ``[..., 1]``, or
     float soft labels of ``input``'s shape. Rows whose label equals

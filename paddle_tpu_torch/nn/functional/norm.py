@@ -7,13 +7,22 @@ import torch
 __all__ = ["layer_norm", "rms_norm"]
 
 
-def layer_norm(x, weight, bias, epsilon: float = 1e-5):
-    """LayerNorm over the last axis, written as paddle_tpu writes it:
-    ``(x - mean) / sqrt(var + eps) * weight + bias`` with the population
-    variance."""
-    mean = x.mean(-1, keepdim=True)
-    var = x.var(-1, keepdim=True, unbiased=False)
-    return (x - mean) / torch.sqrt(var + epsilon) * weight + bias
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
+    """LayerNorm over the trailing ``len(normalized_shape)`` axes (an int
+    is one axis), written as paddle_tpu writes it: ``(x - mean) / sqrt(var
+    + eps)`` with the population variance, then ``* weight`` and ``+
+    bias`` where given. ``name`` is ignored, as paddle_tpu ignores it."""
+    n = 1 if isinstance(normalized_shape, int) else len(normalized_shape)
+    axes = tuple(range(x.ndim - n, x.ndim))
+    mean = x.mean(axes, keepdim=True)
+    var = x.var(axes, keepdim=True, unbiased=False)
+    out = (x - mean) / torch.sqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
 
 
 def rms_norm(x, weight=None, epsilon: float = 1e-6, axis: int = -1,

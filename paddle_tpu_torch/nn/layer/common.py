@@ -2,47 +2,130 @@
 
 paddle's layouts: a Linear weight is ``[in, out]`` and applies as ``x @ W
 + b``, so weights carry across from paddle_tpu by name with no transpose
-(``convert.load_paddle_tpu_params``). The models draw the weights
-(``models/``); the layers only allocate them.
+(``convert.load_paddle_tpu_params``).
+
+A layer built on its own draws paddle_tpu's default initialisers at
+construction: a Linear weight Xavier normal, its bias zeros, an Embedding
+weight N(0, 1), from ``framework.random``'s generator of the device the
+parameter is built on (constant fills, ones and zeros, always run). The
+models draw their own weights, so they build their layers inside
+``_no_default_init()`` or on the meta device, where nothing is drawn: no
+weight is drawn twice.
 """
 from __future__ import annotations
+
+import contextlib
+import math
+import threading
 
 import torch
 from torch import nn
 
+from ...framework import random as _random
 from .. import functional as F
 
 __all__ = ["Linear", "Embedding", "Dropout"]
 
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def _no_default_init():
+    """Build layers without their default draws (the models draw their
+    weights themselves, once)."""
+    prev = getattr(_state, "skip", False)
+    _state.skip = True
+    try:
+        yield
+    finally:
+        _state.skip = prev
+
+
+def _param(shape, attr, what):
+    """A parameter of ``shape`` (uninitialised), or None where ``attr`` is
+    False. paddle_tpu's ParamAttr forms: None / True -> a parameter, a
+    string -> its name (the port names parameters by attribute), False ->
+    none; a ParamAttr or an initializer object is not ported."""
+    if attr is False:
+        return None
+    if attr is not None and attr is not True and not isinstance(attr, str):
+        raise NotImplementedError(
+            f"{what}={attr!r}: ParamAttr and initializer objects are not "
+            "ported yet — see ROADMAP.md")
+    return nn.Parameter(torch.empty(*shape))
+
+
+def _draw(p, fill, random=True):
+    """``fill(p, generator)`` under no_grad, unless ``p`` has no memory
+    (the meta device) or, for a ``random`` fill, the default draws are
+    off. Constant fills (ones, zeros) always run."""
+    if p is None or p.is_meta:
+        return
+    if random and getattr(_state, "skip", False):
+        return
+    with torch.no_grad():
+        fill(p, _random.default_generator().get(p.device) if random
+             else None)
+
 
 class Linear(nn.Module):
-    """Paddle-layout linear: weight ``[in, out]``, ``y = x @ W + b``."""
+    """Paddle-layout linear: weight ``[in, out]``, ``y = x @ W + b``;
+    ``bias_attr=False`` drops the bias."""
 
-    def __init__(self, in_features, out_features, bias=True):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(in_features, out_features))
-        self.bias = (nn.Parameter(torch.zeros(out_features))
-                     if bias else None)
+        self.in_features, self.out_features = in_features, out_features
+        self.weight = _param((in_features, out_features), weight_attr,
+                             "weight_attr")
+        self.bias = _param((out_features,), bias_attr, "bias_attr")
+        std = math.sqrt(2.0 / (in_features + out_features))
+        _draw(self.weight, lambda p, g: p.normal_(0.0, std, generator=g))
+        _draw(self.bias, lambda p, g: p.zero_(), random=False)
 
     def forward(self, x):
         y = x @ self.weight
         return y if self.bias is None else y + self.bias
 
+    def extra_repr(self):
+        return (f"in_features={self.in_features}, "
+                f"out_features={self.out_features}")
+
 
 class Embedding(nn.Module):
-    """Rows of ``weight`` ``[num_embeddings, embedding_dim]`` by index."""
+    """Rows of ``weight`` ``[num_embeddings, embedding_dim]`` by index.
+    With ``padding_idx`` that row starts at zero and, as in paddle_tpu,
+    the lookup of that index gives zeros, so the row gets no gradient.
+    ``sparse`` is accepted and ignored (gradients are dense)."""
 
-    def __init__(self, num_embeddings, embedding_dim):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(num_embeddings,
-                                               embedding_dim))
+        self.embedding_dim = embedding_dim
+        self.padding_idx = padding_idx
+        self.weight = _param((num_embeddings, embedding_dim), weight_attr,
+                             "weight_attr")
+
+        def fill(p, g):
+            p.normal_(0.0, 1.0, generator=g)
+            if padding_idx is not None:
+                p[padding_idx] = 0.0
+        _draw(self.weight, fill)
 
     @property
     def num_embeddings(self) -> int:
         return self.weight.shape[0]
 
-    def forward(self, ids):
-        return torch.nn.functional.embedding(ids, self.weight)
+    def forward(self, x):
+        out = torch.nn.functional.embedding(x, self.weight)
+        if self.padding_idx is None:
+            return out
+        return torch.where((x == self.padding_idx)[..., None],
+                           torch.zeros((), dtype=out.dtype,
+                                       device=out.device), out)
+
+    def extra_repr(self):
+        return f"{self.num_embeddings}, {self.embedding_dim}"
 
 
 class Dropout(nn.Module):

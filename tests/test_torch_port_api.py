@@ -23,6 +23,12 @@ from paddle_tpu.inference.engine import \
     ContinuousBatchingEngine as JaxEngine
 from paddle_tpu.models import generation as jgen
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
+from paddle_tpu import nn as jnn
+from paddle_tpu import obs as jobs
+from paddle_tpu.distributed import resilience as jresil
+from paddle_tpu.framework import env as jenv
+from paddle_tpu.inference import engine as jengine
+from paddle_tpu.nn import functional as jF
 from paddle_tpu.nn.functional import activation as jact
 from paddle_tpu.nn.functional import common as jcommon
 from paddle_tpu_torch import jit as tjit
@@ -31,12 +37,72 @@ from paddle_tpu_torch.inference import serve as tserve
 from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
 from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.models.gpt import GPTConfig
+from paddle_tpu_torch import nn as tnn
+from paddle_tpu_torch import obs as tobs
+from paddle_tpu_torch.distributed import resilience as tresil
+from paddle_tpu_torch.framework import env as tenv
+from paddle_tpu_torch.inference import engine as tengine
+from paddle_tpu_torch.nn import functional as tF
 from paddle_tpu_torch.nn.functional import activation as tact
 from paddle_tpu_torch.nn.functional import common as tcommon
 
 # both packages re-export a flash_attention function under the module's name
 jfa = importlib.import_module("paddle_tpu.nn.functional.flash_attention")
 tfa = importlib.import_module("paddle_tpu_torch.nn.functional.flash_attention")
+
+
+def _attr(mod, dotted):
+    obj = mod
+    for part in dotted.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+# (port module, reference module, dotted name): the nn bindings (C8), the
+# serving tier's engine and server surface, obs and resilience
+_NAMES = [(tF, jF, n) for n in ("layer_norm", "cross_entropy")] + [
+    (tnn, jnn, n) for n in ("Linear.__init__", "Embedding.__init__",
+                            "Embedding.forward", "LayerNorm.__init__",
+                            "RMSNorm.__init__")] + [
+    (tserve, jserve, n) for n in (
+        "PredictorServer.start", "PredictorServer.stop",
+        "PredictorServer.begin_drain", "PredictorServer.inflight",
+        "send_json", "send_text", "handle_admin_trace", "main")] + [
+    (tengine, jengine, n) for n in (
+        "ContinuousBatchingEngine.submit", "ContinuousBatchingEngine.cancel",
+        "ContinuousBatchingEngine.warmup", "ContinuousBatchingEngine.stats",
+        "GenerationPredictor.__init__", "GenerationPredictor.generate",
+        "create_engine_predictor")] + [
+    (tpred, jpred, "Config.enable_continuous_batching"),
+    (tenv, jenv, "bool_env")] + [
+    (tobs, jobs, n) for n in (
+        "enabled", "set_enabled", "span", "record_span", "dump_flight",
+        "make_lock", "make_rlock", "make_condition", "set_lock_san",
+        "metrics.Registry.counter", "metrics.Registry.gauge",
+        "metrics.Registry.histogram", "metrics.Registry.render",
+        "metrics.Counter.inc", "metrics.Gauge.set",
+        "metrics.Histogram.observe",
+        "metrics.Histogram.snap", "metrics.HistSnap.percentile",
+        "metrics.parse_text", "metrics.percentile_from_cum",
+        "metrics.samples_to_hist", "metrics.render_tier",
+        "trace.FlightRecorder.record", "trace.begin_span", "trace.end_span",
+        "trace.export_chrome", "trace.artifact_dir",
+        "efficiency.chip_spec", "efficiency.mfu",
+        "efficiency.model_bandwidth_eff", "efficiency.modeled_tick_bytes",
+        "efficiency.train_step_flops", "efficiency.tree_nbytes")] + [
+    (tresil, jresil, n) for n in (
+        "maybe_inject", "should_fire", "wedge_seconds", "arm_fault",
+        "_parse_spec", "FaultInjector.__init__")]
+
+
+def test_capture_takes_a_torch_profile_flag():
+    """``capture``'s profiler flag names the port's profiler:
+    ``profile`` where paddle_tpu's is ``jax_profile``, in the same
+    place."""
+    got = list(inspect.signature(tobs.trace.capture).parameters)
+    want = list(inspect.signature(jobs.trace.capture).parameters)
+    assert want == ["duration_s", "jax_profile"]
+    assert got == ["duration_s", "profile"]
 
 
 def _fields(cls):
@@ -60,10 +126,12 @@ def test_gpt_config_fields_match_reference():
     (tjit.save, jjit.save),
     (tjit.InputSpec.__init__, jjit.InputSpec.__init__),
     (tcommon.dropout, jcommon.dropout),
-    (tact.gelu, jact.gelu)],
+    (tact.gelu, jact.gelu)] + [
+    (_attr(tmod, name), _attr(jmod, name)) for tmod, jmod, name in _NAMES],
     ids=["flash_attention", "scaled_dot_product_attention", "generate",
          "ContinuousBatchingEngine", "PredictorServer", "Config",
-         "create_predictor", "jit.save", "InputSpec", "dropout", "gelu"])
+         "create_predictor", "jit.save", "InputSpec", "dropout", "gelu"] + [
+         name for _, _, name in _NAMES])
 def test_signature_matches_reference(port, ref):
     got = list(inspect.signature(port).parameters)
     want = list(inspect.signature(ref).parameters)

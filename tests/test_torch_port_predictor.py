@@ -187,9 +187,13 @@ def test_config_contract(saved, tmp_path):
     for knob in (cfg.enable_mkldnn, cfg.enable_memory_optim,
                  cfg.switch_ir_optim):
         knob()
-    for knob in (cfg.enable_int8, cfg.enable_continuous_batching):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            knob()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cfg.enable_int8()
+    # the engine predictor is ported: without a live model it refuses as
+    # paddle_tpu's does (tests/test_torch_port_serve_tier.py drives it)
+    cfg.enable_continuous_batching()
+    with pytest.raises(ValueError, match="live model"):
+        create_predictor(cfg)
     assert get_num_bytes_of_data_type(DataType.BFLOAT16) == 2
     assert get_num_bytes_of_data_type(DataType.INT64) == 8
     assert "torch" in get_version()

@@ -271,12 +271,9 @@ def test_server_passes_the_seed(model):
 
 @pytest.mark.parametrize("method", ["submit", "generate"])
 def test_engine_methods_take_the_reference_parameter_order(method):
-    """``seed`` sits where paddle_tpu puts it; paddle_tpu's trailing
-    ``progress_cb`` (streaming) is not ported."""
+    """``seed`` sits where paddle_tpu puts it, and ``submit`` ends with
+    the streaming ``progress_cb`` as paddle_tpu's does."""
     got = list(inspect.signature(
         getattr(ContinuousBatchingEngine, method)).parameters)
     want = list(inspect.signature(getattr(JaxEngine, method)).parameters)
-    if method == "submit":
-        assert want[-1] == "progress_cb"
-        want = want[:-1]
     assert got == want
