@@ -219,18 +219,49 @@ failure:
    (mega_decode_step launches ticks x 8 x 12); last, phase 4's serving
    with PADDLE_TPU_OBS off and on, in turns, six times each (ms a tick
    each and the medians).
-23. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
+23. the router tier: Router(ReplicaSpec(gpt_125m at full width and depth
+   on the card, paged f32 pool of 16-token pages with the prefix cache,
+   slots 8, max_len 1024, tick 8, seed 0), replicas=2): two replica
+   processes on the one card, the kernels built in this process before
+   the spawn; each replica's time from spawn to ready, the tier's
+   /healthz 200 with 2 ready, no replica runs nvcc (its /healthz and its
+   log). 8 prompts of 16-300 tokens with distinct first pages, one at a
+   time, 32 new tokens, held to the CPU oracle's sequential generate() by
+   phase 5's rule; then POST /admin/trace?duration_s=2&profile=1 on each
+   replica over 8 concurrent streams of the same prompts (held the same
+   way): each replica's torch.profiler trace names kv_paged_write and no
+   mega_decode kernel; kv_paged_write launches equal forwards x 12 on
+   each replica (their /healthz counters, before and after); TTFT p50/p99
+   through the tier (the router's histogram, and on the client) beside
+   phase 22's direct figures, and the router's added wall (its
+   router.forward span minus the replica's serve.generate span of the
+   same request id). Kill -9: 8 concurrent streams of 64-token prompts,
+   128 new tokens each; once every stream has its first token, the
+   replica with the most in flight is killed: every stream ends complete
+   (streamed tokens = done body, 128 each) and held to the CPU oracle
+   (one batched generate() of the 8) by phase 5's rule; at least one
+   recovery counted (stats, ptpu_router_recoveries_total, the done
+   bodies), a request_recovery flight dump naming only these requests;
+   the dead replica respawned and ready again without nvcc. An armed
+   router_forward fault is retried once and answers 200. rolling_restart()
+   under light traffic: both replaced, every request 200, no nvcc. The
+   tier's /metrics carries the 17 ptpu_router_* families and each
+   replica's series (render_tier). Both replicas drained: /generate gets
+   503 no_replica_ready with Retry-After. router.stop() ends every
+   replica process.
+24. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
    wgmma kernels of phases 8 and 14, and the f32 3xTF32 ones of phases 7
-   and 13, their launches from the tensor-core counts; B3 four times:
+   and 13, their launches from the tensor-core counts; B3 five times:
    kv_slot_write and kv_paged_write with their launches in phases 6 and
-   9, and the per-plane fused_slot_write and fused_paged_write, which no
+   9, kv_paged_write_f32_tier with phase 23's (timed on an f32 pool), and
+   the per-plane fused_slot_write and fused_paged_write, which no
    serving path launches: 0; then LLaMA-13B's rows: B4 and kv_paged_write
    with their launches in phases 15 and 16, B1 at D 128 and B2 at V 32000
    with phase 18's; then BERT/ERNIE's rows: B1 non-causal bf16 with phase
    19's launches, B1 f32 with phase 20's, B2 at V 2 with phase 21's and at
    V 30522 with phase 20's), the serving lines of phases 15 and 16,
-   phase 19's latency and phase 22's figures, the card line, and last the
-   {"ok": true, "device": {...}} line.
+   phase 19's latency and phase 22's and 23's figures, the card line, and
+   last the {"ok": true, "device": {...}} line.
 
 ``python3 chip_smoke.py --sp-cards`` on a host with 4 or more cards runs
 phases 1 and 2 and then only phase 13's run with one shard on each of
@@ -250,6 +281,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2120,15 +2152,19 @@ def expect_launches(what, counts, **want):
         fail(f"{what}: launches {counts} != {full}")
 
 
-def check_oracle(torch, pkg, oracle, prompts, toks, what, max_new=MAX_NEW):
+def check_oracle(torch, pkg, oracle, prompts, toks, what, max_new=MAX_NEW,
+                 wants=None):
     """Phase 5's rule: each request's tokens equal the sequential greedy
     generate() of the CPU copy, except where the CPU's top-2 logit margin
     at the first differing token is < 1e-4. Identical prompts are checked
-    once."""
+    once. ``wants``: the oracle's tokens for each prompt, computed
+    already."""
     gen = {}
-    for p, got in zip(prompts, toks):
+    for i, (p, got) in enumerate(zip(prompts, toks)):
         key = tuple(int(x) for x in p)
-        if key not in gen:
+        if wants is not None:
+            gen[key] = wants[i]
+        elif key not in gen:
             gen[key] = pkg["generate"](oracle, p, max_new,
                                        cache_dtype="float32")[0]
         want_t = gen[key]
@@ -3120,6 +3156,467 @@ def serving_tier(torch, pkg, card, cold_ttft_ms):
     return out
 
 
+# the router's families (paddle_tpu/inference/router.py:1318-1410): what
+# phase 23's /metrics must carry
+ROUTER_FAMILIES = (
+    "ptpu_router_forward_ms", "ptpu_router_forwards_total",
+    "ptpu_router_retries_total", "ptpu_router_ejections_total",
+    "ptpu_router_breaker_open", "ptpu_router_ready_replicas",
+    "ptpu_router_recoveries_total", "ptpu_router_hedges_total",
+    "ptpu_router_hedge_wins_total", "ptpu_router_cancels_total",
+    "ptpu_router_token_progress_ms", "ptpu_router_ttft_ms",
+    "ptpu_router_streams_total", "ptpu_router_client_disconnects_total",
+    "ptpu_router_ttft_hedges_total", "ptpu_router_prewarms_total",
+    "ptpu_router_prewarmed_resumes_total")
+TIER_NEW = 128                      # phase 23's kill -9 streams
+
+
+def tier_stream(url, prompt, max_new, rid, first=None):
+    """A streamed POST /generate through the tier: (its NDJSON events, ms
+    to the first token block); ``first`` is set when that block arrives."""
+    req = urllib.request.Request(url + "/generate", data=json.dumps(
+        {"input_ids": [int(t) for t in prompt], "max_new_tokens": max_new,
+         "stream": True}).encode(), headers={
+        "Content-Type": "application/json", "X-PTPU-Request-Id": rid})
+    t0, ttft, events = time.perf_counter(), None, []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.headers["Content-Type"] != "application/x-ndjson":
+            fail(f"tier stream {rid}: content type "
+                 f"{r.headers['Content-Type']}")
+        for raw in r:
+            if raw.strip():
+                events.append(json.loads(raw))
+                if ttft is None and "t" in events[-1]:
+                    ttft = (time.perf_counter() - t0) * 1e3
+                    if first is not None:
+                        first.set()
+    return events, ttft
+
+
+def stream_body(what, prompt, events, max_new):
+    """The done body of a finished stream whose {"t"} lines are exactly its
+    generated tokens, each once."""
+    if not events or "done" not in events[-1]:
+        fail(f"{what}: the stream ended with {events[-1:] or 'nothing'}")
+    body = events[-1]["done"]
+    got = [t for e in events[:-1] for t in e["t"]]
+    if (len(body["tokens"]) != len(prompt) + max_new
+            or body["tokens"][:len(prompt)] != [int(x) for x in prompt]
+            or got != body["tokens"][len(prompt):]):
+        fail(f"{what}: {len(got)} streamed tokens against a done body of "
+             f"{len(body['tokens'])} (prompt {len(prompt)}, {max_new} new)")
+    return body
+
+
+class ReplicaWatch:
+    """Polls the router's replicas every 20 ms on a thread: when each was
+    spawned and first seen ready (``time.monotonic()``)."""
+
+    def __init__(self, router):
+        self.router, self.seen, self.ready = router, {}, {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            now = time.monotonic()
+            with self.router._lock:
+                reps = list(self.router._replicas)
+            for r in reps:
+                self.seen.setdefault(r.name, r.spawned_at)
+                if r.state == "ready":
+                    self.ready.setdefault(r.name, now)
+
+    def ready_s(self, name):
+        return self.ready[name] - self.seen[name]
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+def replica_health(rep):
+    """/healthz of one replica (its body, whatever the status)."""
+    return http(f"http://127.0.0.1:{rep['port']}", "/healthz")[1]
+
+
+def replica_counts(router):
+    """{replica name: (kv_paged_write launches, forwards)} from each
+    replica's /healthz, read once the tier is idle (no slot busy, the same
+    counts twice in a row: a standby's /prewarm may still be landing)."""
+    def read():
+        out = {}
+        for rep in router.replicas():
+            eng = replica_health(rep)["engine"]
+            if eng["active"] or eng["queued"]:
+                return None
+            out[rep["name"]] = (eng["kernel_launches"]["kv_paged_write"],
+                                eng["admitted"] + eng["ticks"] * TICK)
+        return out
+    prev = None
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        cur = read()
+        if cur is not None and cur == prev:
+            return cur
+        prev = cur
+        time.sleep(0.2)
+    fail(f"the tier never went idle: {router.replicas()}")
+
+
+def no_nvcc(router, rep):
+    """The replica compiled nothing: its /healthz and its log say so.
+    Returns its start-up stages, in seconds from its spawn: the
+    interpreter and imports ("main"), the model built on the card, the
+    engine, the server (its listener, the profiler primed), ready
+    (warmup done, within the child's quarter-second poll)."""
+    comp = replica_health(rep)["compilation"]
+    path = os.path.join(router.workdir, f"{rep['name']}.log")
+
+    def log():
+        with open(path) as f:
+            return f.read()
+    # the replica logs its line within a quarter second of turning ready
+    wait_until(f"{rep['name']}'s ready line", lambda: "replica ready" in
+               log(), timeout=30)
+    if comp["nvcc_runs"] != 0 or '"nvcc_runs": 0' not in log():
+        fail(f"replica {rep['name']} ran nvcc: {comp}; log "
+             f"{log()[-2000:]}")
+    line = [ln for ln in log().splitlines() if "replica ready" in ln][0]
+    stages = json.loads(line.split(" stages ", 1)[1])
+    spawned = next(r.spawned_at for r in router._replicas
+                   if r.name == rep["name"])
+    return {k: round(v - spawned, 3) for k, v in stages.items()}
+
+
+def profile_kernels(meta):
+    """The device kernels' names in a ``/admin/trace?profile=1`` capture's
+    torch.profiler trace."""
+    with open(os.path.join(meta["torch_profile_dir"], "trace.json")) as f:
+        return [e.get("name", "") for e in json.load(f)["traceEvents"]
+                if e.get("cat") == "kernel"]
+
+
+def router_tier(torch, pkg, card, direct):
+    """Phase 23 (see the module docstring): Router over two replica
+    processes of gpt_125m on the card. ``direct`` is phase 22's figures.
+    Returns the figures it prints."""
+    t_phase = time.perf_counter()
+    np, obs, resil, rt = pkg["np"], pkg["obs"], pkg["resil"], pkg["router"]
+    reg = obs.metrics.registry
+    cfg = pkg["gpt_125m"]()
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, cfg.vocab_size, int(m))
+               for m in rng.integers(16, 301, 8)]
+    kill_p = rng.integers(0, cfg.vocab_size, (8, 64))
+    if len({tuple(p[:PAGE]) for p in prompts}) != 8:
+        fail("phase 23's prompts share a first page")
+    out = {}
+
+    print("  the CPU oracle (phase 5's rule) first, so that the replicas "
+          "start on idle host cores", flush=True)
+    card_model = pkg["GPT"](cfg, seed=0)
+    oracle = pkg["GPT"](cfg, device="cpu", seed=1)
+    pkg["load"](oracle, {n: p.detach().cpu().numpy()
+                         for n, p in card_model.named_parameters()})
+    del card_model
+    release(torch)
+    t0 = time.perf_counter()
+    want = {i: pkg["generate"](oracle, p, MAX_NEW, cache_dtype="float32")[0]
+            for i, p in enumerate(prompts)}
+    # the kill streams' prompts are one length: one batched call
+    want["kill"] = pkg["generate"](oracle, kill_p, TIER_NEW,
+                                   cache_dtype="float32")
+    print(f"  oracle: {time.perf_counter() - t0:.1f} s (8 x {MAX_NEW} tokens "
+          f"one prompt at a time, 8 x {TIER_NEW} as one batch)", flush=True)
+
+    model_spec = {"kind": "gpt", "vocab_size": cfg.vocab_size,
+                  "hidden_size": cfg.hidden_size,
+                  "num_layers": cfg.num_layers, "num_heads": cfg.num_heads,
+                  "max_seq_len": cfg.max_seq_len, "device": "cuda"}
+    engine_spec = {"paged": True, "page_size": PAGE, "prefix_cache": True,
+                   "cache_dtype": "float32", "slots": 8, "max_len": L_SLICE,
+                   "tick_tokens": TICK}
+    spec = rt.ReplicaSpec(model_spec, engine_spec, warmup=True,
+                          drain_s=30.0, seed=0,
+                          env=rt.single_device_child_env("gpu"))
+    t0 = time.perf_counter()
+    built = pkg["build"]()           # every library, before any spawn
+    print(f"  kernels built in the parent before the spawn: "
+          f"{sorted(built) or 'all already built'} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    router = rt.Router(spec, replicas=2, poll_s=0.1, deadline_s=600.0)
+    watch = None
+    try:
+        t0 = time.perf_counter()
+        router.start()
+        watch = ReplicaWatch(router)
+        if not router.wait_ready(2, timeout=300):
+            fail(f"tier not ready: {router.replicas()}")
+        url = f"http://{router.host}:{router.port}"
+        code, hz, _ = http(url, "/healthz")
+        if code != 200 or hz["ready_replicas"] != 2 or not hz["tier"]:
+            fail(f"tier /healthz: {code} {hz}")
+        fresh = {r["name"]: r for r in router.replicas()}
+        wait_until("the watcher", lambda: set(fresh) <= set(watch.ready))
+        out["ready_fresh_s"] = [watch.ready_s(n) for n in sorted(fresh)]
+        out["stages_fresh_s"] = [no_nvcc(router, fresh[n])
+                                 for n in sorted(fresh)]
+        print(f"  2 replicas ({', '.join(sorted(fresh))}, pids "
+              f"{[r['pid'] for r in fresh.values()]}) ready after "
+              f"{time.perf_counter() - t0:.3f} s; each from spawn "
+              f"{['%.3f s' % s for s in out['ready_fresh_s']]}; tier "
+              f"/healthz 200 with 2 ready; neither ran nvcc; stages from "
+              f"spawn {out['stages_fresh_s']} ({card})", flush=True)
+
+        base = replica_counts(router)
+        print("  identity: the 8 prompts one at a time, 32 new tokens each",
+              flush=True)
+        toks = []
+        for i, p in enumerate(prompts):
+            code, body, _ = http(url, "/generate", {
+                "input_ids": p.tolist(), "max_new_tokens": MAX_NEW},
+                {"X-PTPU-Request-Id": f"tier23-i{i}"})
+            if code != 200 or body.get("request_id") != f"tier23-i{i}":
+                fail(f"tier request {i}: {code} {body}")
+            toks.append(body["tokens"])
+        check_oracle(torch, pkg, oracle, prompts, toks, "tier (sequential)",
+                     wants=[want[i] for i in range(8)])
+
+        print("  /admin/trace?duration_s=2&profile=1 on each replica, 8 "
+              "concurrent streams through the tier", flush=True)
+        snap = reg.get("ptpu_router_ttft_ms").snap()
+        traces = {}
+        reps = router.replicas()
+        tths = [threading.Thread(target=lambda r=r: traces.update({
+            r["name"]: http(f"http://127.0.0.1:{r['port']}",
+                            "/admin/trace?duration_s=2&profile=1", {})}))
+            for r in reps]
+        for th in tths:
+            th.start()
+        time.sleep(0.3)
+        rids = [f"tier23-t{i}" for i in range(8)]
+        streams = in_threads([
+            (lambda p=p, r=r: tier_stream(url, p, MAX_NEW, r))
+            for p, r in zip(prompts, rids)])
+        for th in tths:
+            th.join(timeout=300)
+        bodies = [stream_body(f"trace stream {i}", p, ev, MAX_NEW)
+                  for i, (p, (ev, _)) in enumerate(zip(prompts, streams))]
+        check_oracle(torch, pkg, oracle, prompts,
+                     [b["tokens"] for b in bodies], "tier (8 streams)",
+                     wants=[want[i] for i in range(8)])
+        dl = reg.get("ptpu_router_ttft_ms").snap().minus(snap)
+        client = sorted(t for _, t in streams)
+        out["tier_ttft_ms"] = (dl.percentile(0.5), dl.percentile(0.99))
+        out["tier_ttft_client_ms"] = (client[len(client) // 2 - 1],
+                                      client[-1])
+        for name, (code, doc, _) in traces.items():
+            meta = doc.get("metadata", {})
+            if code != 200 or "torch_profile_error" in meta:
+                fail(f"replica {name} /admin/trace: {code} {meta}")
+            kern = profile_kernels(meta)
+            n_kvp = sum("kv_paged_write" in k for k in kern)
+            n_md = sum("mega_decode" in k for k in kern)
+            if not n_kvp or n_md:
+                fail(f"replica {name}'s profiler trace: {n_kvp} "
+                     f"kv_paged_write and {n_md} mega_decode of "
+                     f"{len(kern)} kernels")
+            print(f"    {name}: the profiler's trace holds {len(kern)} "
+                  f"kernels, {n_kvp} of them kv_paged_write, no "
+                  "mega_decode", flush=True)
+        # the router's wall around each request: its router.forward span
+        # (the attempt "<rid>.0") minus the replica's serve.generate span
+        fwd = {e["args"]["request_id"]: e["dur"] for e in
+               obs.recorder.events() if e["name"] == "router.forward"
+               and e.get("args", {}).get("request_id", "").startswith(
+                   "tier23-t")}
+        gen = {}
+        for r in router.replicas():
+            _, doc, _ = http(f"http://127.0.0.1:{r['port']}",
+                             "/admin/trace?duration_s=0", {})
+            gen.update({e["args"]["request_id"]: e["dur"]
+                        for e in doc["traceEvents"]
+                        if e["name"] == "serve.generate"
+                        and e.get("args", {}).get("request_id") in fwd})
+        added = sorted((fwd[k] - gen[k]) / 1e3 for k in gen)
+        if len(added) != 8:
+            fail(f"router.forward / serve.generate pairs: {len(added)} of 8 "
+                 f"({sorted(fwd)}, {sorted(gen)})")
+        out["router_added_ms"] = (added[3], added[-1])
+        after = replica_counts(router)
+        launches = {n: after[n][0] - base[n][0] for n in base}
+        fwds = {n: after[n][1] - base[n][1] for n in base}
+        if any(launches[n] != fwds[n] * LAYERS or not launches[n]
+               for n in base):
+            fail(f"tier kv_paged_write launches {launches} != forwards "
+                 f"{fwds} x {LAYERS} on every replica")
+        out["kv_paged_write"] = sum(launches.values())
+        print(f"  tokens of both passes match the CPU oracle; streams equal "
+              f"their done bodies; kv_paged_write launches {launches} = "
+              f"forwards {fwds} x {LAYERS}; TTFT over the 8 streams (router "
+              f"histogram, bucket estimates) p50 {out['tier_ttft_ms'][0]:.2f}"
+              f" ms p99 {out['tier_ttft_ms'][1]:.2f} ms, client-side p50 "
+              f"{out['tier_ttft_client_ms'][0]:.2f} ms max "
+              f"{out['tier_ttft_client_ms'][1]:.2f} ms; phase 22's direct "
+              f"engine p50 {direct['ptpu_engine_ttft_ms'][0]:.2f} ms p99 "
+              f"{direct['ptpu_engine_ttft_ms'][1]:.2f} ms; the router's "
+              f"added wall (router.forward - serve.generate) median "
+              f"{added[3]:.3f} ms max {added[-1]:.3f} ms ({card})",
+              flush=True)
+
+        print(f"  kill -9: 8 concurrent streams of {TIER_NEW} new tokens, "
+              "one replica killed mid-decode", flush=True)
+        rec0 = router.stats_counters["recoveries"]
+        resp0 = router.stats_counters["respawns"]
+        firsts = [threading.Event() for _ in range(8)]
+        kres = [None] * 8
+
+        def kill_client(i):
+            kres[i] = tier_stream(url, kill_p[i], TIER_NEW, f"tier23-k{i}",
+                                  firsts[i])
+        kths = [threading.Thread(target=kill_client, args=(i,))
+                for i in range(8)]
+        for th in kths:
+            th.start()
+        wait_until("every stream's first token",
+                   lambda: all(e.is_set() for e in firsts))
+        busy = max(router.replicas(), key=lambda r: r["inflight"])
+        if busy["inflight"] <= 0:
+            fail(f"no replica has a forward in flight: {router.replicas()}")
+        t_kill = time.monotonic()
+        os.kill(busy["pid"], signal.SIGKILL)
+        for th in kths:
+            th.join(timeout=600)
+            if th.is_alive():
+                fail("a kill -9 stream never ended")
+        kb = [stream_body(f"kill stream {i}", kill_p[i], kres[i][0],
+                          TIER_NEW) for i in range(8)]
+        check_oracle(torch, pkg, oracle, list(kill_p),
+                     [b["tokens"] for b in kb], "tier across the kill",
+                     max_new=TIER_NEW, wants=list(want["kill"]))
+        recovered = [b.get("recovered", 0) for b in kb]
+        nrec = router.stats_counters["recoveries"] - rec0
+        vals, _ = scrape(url)
+        dumps = []
+        for fn in sorted(os.listdir(obs.trace.artifact_dir())):
+            if fn.startswith("flight_request_recovery_"):
+                with open(os.path.join(obs.trace.artifact_dir(), fn)) as f:
+                    dumps += [m["request_id"] for m in
+                              json.load(f)["metadata"]["migrated"]]
+        if (nrec < 1 or vals.get("ptpu_router_recoveries_total", 0) < 1
+                or not any(recovered) or not dumps
+                or not set(dumps) <= {f"tier23-k{i}" for i in range(8)}):
+            fail(f"recovery: {nrec} counted, metric "
+                 f"{vals.get('ptpu_router_recoveries_total')}, recovered "
+                 f"{recovered}, flight dump ids {dumps}")
+        wait_until("the respawn", lambda: router.ready_count() == 2
+                   and router.stats_counters["respawns"] > resp0,
+                   timeout=300)
+        new = [r for r in router.replicas() if r["name"] not in fresh]
+        wait_until("the watcher", lambda: new[0]["name"] in watch.ready)
+        out["stages_successor_s"] = [no_nvcc(router, new[0])]
+        out["respawn_ready_s"] = watch.ready[new[0]["name"]] - t_kill
+        out["ready_successor_s"] = [watch.ready_s(new[0]["name"])]
+        out["recoveries"] = nrec
+        print(f"  killed {busy['name']} (pid {busy['pid']}, {busy['inflight']}"
+              f" in flight): every stream complete, {TIER_NEW} tokens each, "
+              f"streamed = done body, held to the CPU oracle; recoveries "
+              f"{nrec} (streams recovered {recovered}), flight dump names "
+              f"{sorted(set(dumps))}; {new[0]['name']} respawned and ready "
+              f"{out['respawn_ready_s']:.3f} s after the kill "
+              f"({out['ready_successor_s'][0]:.3f} s from its spawn), no "
+              f"nvcc ({card})", flush=True)
+
+        print("  an armed router_forward fault", flush=True)
+        retries = router.stats_counters["retries"]
+        resil.arm_fault("router_forward", 1)
+        code, body, _ = http(url, "/generate", {
+            "input_ids": prompts[0].tolist(), "max_new_tokens": 8})
+        if code != 200 or router.stats_counters["retries"] != retries + 1:
+            fail(f"injected fault: {code} {body}, retries "
+                 f"{router.stats_counters['retries'] - retries}")
+        print(f"  retried once, answered 200 by {body['served_by']}",
+              flush=True)
+
+        print("  rolling restart under light traffic", flush=True)
+        stop, light = threading.Event(), []
+
+        def traffic():
+            while not stop.is_set():
+                light.append(http(url, "/generate", {
+                    "input_ids": prompts[1][:32].tolist(),
+                    "max_new_tokens": 16})[0])
+                time.sleep(0.05)
+        th = threading.Thread(target=traffic)
+        th.start()
+        t0 = time.perf_counter()
+        try:
+            res = router.rolling_restart(ready_timeout=300)
+        finally:
+            stop.set()
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if not res["ok"] or len(res["replaced"]) != 2 or not light or any(
+                c != 200 for c in light):
+            fail(f"rolling restart: {res}; requests {light}")
+        succ = [new for _, new in res["replaced"]]
+        out["stages_successor_s"] += [
+            no_nvcc(router, r) for r in router.replicas()]
+        wait_until("the watcher", lambda: set(succ) <= set(watch.ready))
+        out["ready_successor_s"] += [watch.ready_s(n) for n in succ]
+        print(f"  replaced {res['replaced']} in {wall:.1f} s; {len(light)} "
+              f"requests meanwhile, all 200; successors ready "
+              f"{['%.3f s' % watch.ready_s(n) for n in succ]} from spawn, "
+              f"no nvcc ({card})", flush=True)
+
+        text = urllib.request.urlopen(url + "/metrics", timeout=60).read(
+            ).decode()
+        types = {ln.split()[2] for ln in text.splitlines()
+                 if ln.startswith("# TYPE ")}
+        live = [r["name"] for r in router.replicas()]
+        missing = [f for f in ROUTER_FAMILIES if f not in types] + [
+            n for n in live if f'replica="{n}"' not in text] + [
+            s for s in ("ptpu_tier_engine_ticks_total",
+                        "ptpu_tier_engine_ttft_ms_count")
+            if f"\n{s} " not in text]
+        if missing:
+            fail(f"tier /metrics lacks {missing}")
+        print(f"  tier /metrics: the {len(ROUTER_FAMILIES)} ptpu_router_* "
+              f"families, {live}'s series relabeled, ptpu_tier_engine_* "
+              "sums", flush=True)
+
+        print("  nothing admits: both replicas draining", flush=True)
+        for rep in router.replicas():
+            code, body, _ = http(f"http://127.0.0.1:{rep['port']}",
+                                 "/drain", {})
+            if code != 200:
+                fail(f"/drain {rep['name']}: {code} {body}")
+        wait_until("no ready replica", lambda: router.ready_count() == 0)
+        code, body, hdr = http(url, "/generate", {
+            "input_ids": prompts[0].tolist(), "max_new_tokens": 4})
+        if (code != 503 or body.get("error") != "no_replica_ready"
+                or int(hdr.get("Retry-After", 0)) < 1):
+            fail(f"/generate with both draining: {code} {body}")
+        print(f"  503 {body['error']} with Retry-After {hdr['Retry-After']}",
+              flush=True)
+        out["stats"] = {k: router.stats_counters[k] for k in (
+            "forwards", "retries", "recoveries", "respawns", "hedges",
+            "hedge_wins", "rolling_restarts", "streams")}
+        out["wall_s"] = time.perf_counter() - t_phase
+    finally:
+        if watch is not None:
+            watch.stop()
+        procs = [r.proc for r in router._replicas]
+        router.stop()
+        if any(p.poll() is None for p in procs):
+            fail("a replica process outlived router.stop()")
+    del oracle
+    release(torch)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3156,6 +3653,9 @@ def main():
                  "resil": importlib.import_module(
                      "paddle_tpu_torch.distributed.resilience")}
                 if importlib.util.find_spec("paddle_tpu_torch.obs") else {})
+        if importlib.util.find_spec("paddle_tpu_torch.inference.router"):
+            tier["router"] = importlib.import_module(
+                "paddle_tpu_torch.inference.router")
     except ImportError as e:
         fail(f"cannot import paddle_tpu_torch (run from the repo root): {e}")
     pkg = {"md": md, "cw": cw, "fa": fa, "fb": fb, "ce": ce, "np": np,
@@ -3169,7 +3669,7 @@ def main():
            "BertCls": BertForSequenceClassification,
            "BertMLM": BertForMaskedLM, "bert_base": bert_base, "jit": jit,
            "Config": Config, "create_predictor": create_predictor,
-           "seed": seed, "nnfa": nnfa, **tier}
+           "seed": seed, "nnfa": nnfa, "build": _build.build, **tier}
     # the flight recorder's and the profiler's files go to a directory of
     # the run's own
     obs_dir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
@@ -3432,7 +3932,13 @@ def main():
         fail("paddle_tpu_torch.obs is missing")
     tier = serving_tier(torch, pkg, card, run9.get("first_ttft_ms"))
 
-    print("phase 23: summary", flush=True)
+    print("phase 23: the router tier: Router over 2 replica processes of "
+          "gpt_125m on the card", flush=True)
+    if "router" not in pkg:
+        fail("paddle_tpu_torch.inference.router is missing")
+    router = router_tier(torch, pkg, card, tier)
+
+    print("phase 24: summary", flush=True)
     main_b4 = b4_rows[("bf16", "serving-like pos")]
     main_b3 = b3_rows["int8 data"]
     main_b3p = b3p_rows[("bf16 pages", "decode")]
@@ -3447,11 +3953,15 @@ def main():
          "ms": main_b4["ms"], "plain_ms": main_b4["plain_ms"],
          "bound_ms": main_b4["bound_ms"], "bound_by": main_b4["bound_by"],
          "library_ms": main_b4["library_ms"]}]
-    # B3: the fused writes the serving paths launch (phases 6 and 9), and
-    # the per-plane ones, which no serving path launches any more
+    # B3: the fused writes the serving paths launch (phases 6 and 9; the
+    # f32 pools of phase 23's replicas, their launches read from each
+    # replica's /healthz), and the per-plane ones, which no serving path
+    # launches any more
     for name, replaces, n, row in (
             ("kv_slot_write", 75, kvs_launches, kvs_row),
             ("kv_paged_write", 171, kvp_launches, main_kvp),
+            ("kv_paged_write_f32_tier", 171, router["kv_paged_write"],
+             kvp_rows[("f32", "decode")]),
             ("fused_slot_write", 75, run6["counts"]["fused_slot_write"],
              main_b3),
             ("fused_paged_write", 171, run9["counts"]["fused_paged_write"],
@@ -3594,6 +4104,7 @@ def main():
           f"{ernie['p50']:.3f} ms, p99 {ernie['p99']:.3f} ms ({card})",
           flush=True)
     print("  serving tier: " + json.dumps(tier) + f" ({card})", flush=True)
+    print("  router tier: " + json.dumps(router) + f" ({card})", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

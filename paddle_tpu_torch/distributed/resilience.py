@@ -1,35 +1,45 @@
-"""Fault tolerance, the fault-injection half (port of
+"""Fault tolerance: the retry schedule and fault injection (port of
 paddle_tpu/distributed/resilience.py:61-475).
+
+``RetryPolicy`` / ``with_retries``: the one backoff schedule (exponential,
+jittered or full-jitter, an attempt cap and a total deadline, a server's
+Retry-After hint used verbatim, an injectable clock); the serving tier's
+router retries forwards and paces respawns on it.
 
 ``FaultInjector`` / ``maybe_inject`` / ``arm_fault``: env-var,
 context-manager and programmatic fault simulation at named sites, so that
 every recovery path can be driven on purpose. The serving tier's sites:
 ``serve_backend`` (the engine's ``submit`` and the server's ``/predict``
-raise), ``serve_hang`` (``/predict`` wedges) and ``replica_stall`` (the
-engine's tick wedges); ``POST /admin/inject`` arms them in a live server
-when ``PADDLE_TPU_CHAOS_ADMIN=1``.
+raise), ``serve_hang`` (``/predict`` wedges), ``replica_stall`` (the
+engine's tick wedges), ``router_forward`` (a router-to-replica forward
+fails), ``replica_spawn`` and ``replica_health`` (the router's spawn and
+health poll fail); ``POST /admin/inject`` arms them in a live server when
+``PADDLE_TPU_CHAOS_ADMIN=1``.
 
-Not ported yet (ROADMAP.md): ``RetryPolicy`` (with the router, A10b),
-``StepWatchdog``, ``LossSpikeDetector``, the train-state save/restore and
-``RngState`` (A5, A12); the sites they instrument (``step_hang``,
-``ckpt_shard``, ...) are known names here so that a spec written for
-paddle_tpu parses, and nothing in the port fires them.
+Not ported yet (ROADMAP.md): ``StepWatchdog``, ``LossSpikeDetector``, the
+train-state save/restore and ``RngState`` (A5, A12); the sites they
+instrument (``step_hang``, ``ckpt_shard``, ...) are known names here so
+that a spec written for paddle_tpu parses, and nothing in the port fires
+them.
 
 This module imports only the standard library.
 
 Env knobs:
   PADDLE_TPU_FAULT_INJECT     "site[:count],site..." fault spec
   PADDLE_TPU_FAULT_WEDGE_S    wedge-style fault duration (3600)
+  PADDLE_TPU_RETRY_*          MAX_ATTEMPTS / BASE_DELAY / MAX_DELAY /
+                              DEADLINE (``RetryPolicy.from_env``)
 """
 from __future__ import annotations
 
 import os
+import random
 import threading
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 __all__ = [
-    "ResilienceError", "FaultInjected", "FaultInjector", "maybe_inject",
+    "RetryPolicy", "with_retries", "ResilienceError", "FaultInjected", "FaultInjector", "maybe_inject",
     "should_fire", "wedge_seconds", "arm_fault",
 ]
 
@@ -52,11 +62,179 @@ class FaultInjected(ResilienceError):
 
 
 # ---------------------------------------------------------------------------
+# RetryPolicy — the one backoff schedule
+# ---------------------------------------------------------------------------
+
+class RetryPolicy:
+    """Exponential backoff with jitter, attempt caps, and a deadline.
+
+    ``delay(attempt)`` is the DETERMINISTIC schedule (attempt is
+    1-based; the delay is what to sleep *after* that attempt fails):
+    ``min(base_delay * multiplier**(attempt-1), max_delay)``. Jitter is
+    applied only in ``sleep(attempt)`` so callers that need the exact
+    schedule (tests, the shell watcher mirroring these semantics) can
+    read it.
+
+    ``deadline`` is the TOTAL retry-time budget across attempts and
+    sleeps: sleeps are capped to the remaining budget and once it is
+    exhausted ``run`` re-raises instead of sleeping again — an attempt
+    cap bounds tries, the deadline bounds wall-clock. A retry storm
+    against a dead tier therefore gives up within the caller's
+    deadline, never after attempts x max_delay. ``run(...,
+    deadline=...)`` overrides per call so one shared policy can honor
+    each request's own remaining budget.
+
+    ``full_jitter=True`` switches the jittered sleep to the AWS
+    full-jitter scheme — ``uniform(0, delay(attempt))`` — which
+    decorrelates a thundering herd of retriers far better than the
+    default +/-``jitter`` band around the deterministic schedule.
+    ``delay``/``schedule`` stay deterministic either way.
+
+    **Retry-After hints**: when a failed attempt's exception carries a
+    ``retry_after_s`` attribute (the serving layer attaches the 503
+    body's advisory backoff to every shed it relays), ``run`` sleeps
+    exactly that hint — capped by the remaining deadline — instead of
+    the policy schedule. The server's own word about when capacity
+    clears beats any client-side guess; the hint is used verbatim (no
+    jitter) so tests and the shell watcher can rely on it.
+
+    ``clock``/``sleep_fn`` are injectable for tests (fake clock): they
+    default to ``time.monotonic``/``time.sleep`` and are the ONLY
+    time sources ``run`` consults.
+    """
+
+    def __init__(self, max_attempts: int = 3, base_delay: float = 0.5,
+                 max_delay: float = 60.0, multiplier: float = 2.0,
+                 jitter: float = 0.1, deadline: Optional[float] = None,
+                 retry_on: Tuple[type, ...] = (Exception,),
+                 full_jitter: bool = False,
+                 clock: Optional[Callable[[], float]] = None,
+                 sleep_fn: Optional[Callable[[float], None]] = None):
+        if max_attempts < 1:
+            raise ValueError("max_attempts must be >= 1")
+        if multiplier < 1.0:
+            raise ValueError("multiplier must be >= 1")
+        if not 0.0 <= jitter <= 1.0:
+            raise ValueError("jitter must be in [0, 1]")
+        self.max_attempts = int(max_attempts)
+        self.base_delay = float(base_delay)
+        self.max_delay = float(max_delay)
+        self.multiplier = float(multiplier)
+        self.jitter = float(jitter)
+        self.deadline = deadline
+        self.retry_on = retry_on
+        self.full_jitter = bool(full_jitter)
+        self._clock = clock if clock is not None else time.monotonic
+        self._sleep = sleep_fn if sleep_fn is not None else time.sleep
+
+    @classmethod
+    def from_env(cls, prefix: str = "PADDLE_TPU_RETRY", **defaults):
+        """Build a policy from ``<prefix>_MAX_ATTEMPTS / _BASE_DELAY /
+        _MAX_DELAY / _DEADLINE`` env vars; malformed values fall back to
+        the given defaults (a typo'd knob must never crash rendezvous)."""
+        def num(name, cast, dflt):
+            raw = os.environ.get(f"{prefix}_{name}")
+            if raw is None:
+                return dflt
+            try:
+                return cast(raw)
+            except ValueError:
+                return dflt
+        kw = dict(defaults)
+        kw["max_attempts"] = num("MAX_ATTEMPTS", int,
+                                 defaults.get("max_attempts", 3))
+        kw["base_delay"] = num("BASE_DELAY", float,
+                               defaults.get("base_delay", 0.5))
+        kw["max_delay"] = num("MAX_DELAY", float,
+                              defaults.get("max_delay", 60.0))
+        kw["deadline"] = num("DEADLINE", float, defaults.get("deadline"))
+        return cls(**kw)
+
+    # -- schedule --------------------------------------------------------
+    def delay(self, attempt: int) -> float:
+        """Deterministic post-attempt delay (attempt is 1-based)."""
+        if attempt < 1:
+            raise ValueError("attempt is 1-based")
+        return min(self.base_delay * self.multiplier ** (attempt - 1),
+                   self.max_delay)
+
+    def schedule(self) -> Tuple[float, ...]:
+        """The full inter-attempt delay schedule (len max_attempts-1)."""
+        return tuple(self.delay(a) for a in range(1, self.max_attempts))
+
+    def sleep(self, attempt: int, budget: Optional[float] = None,
+              hint: Optional[float] = None) -> float:
+        """Sleep the (jittered) post-attempt delay; returns the time
+        slept. ``budget`` caps the sleep (remaining deadline). With
+        ``full_jitter`` the sleep is drawn uniform from
+        [0, delay(attempt)] instead of a +/-jitter band. A ``hint``
+        (the server's Retry-After, in seconds) REPLACES the schedule
+        verbatim — still capped by ``budget``."""
+        if hint is not None:
+            d = max(0.0, float(hint))
+        else:
+            d = self.delay(attempt)
+            if self.full_jitter:
+                d = random.uniform(0.0, d)
+            elif self.jitter:
+                d *= 1.0 + random.uniform(-self.jitter, self.jitter)
+        if budget is not None:
+            d = max(0.0, min(d, budget))
+        if d > 0:
+            self._sleep(d)
+        return d
+
+    # -- execution -------------------------------------------------------
+    def run(self, fn: Callable, *args,
+            on_retry: Optional[Callable[[int, BaseException], None]] = None,
+            deadline: Optional[float] = None,
+            **kwargs):
+        """Call ``fn`` under this policy. ``on_retry(attempt, exc)`` is
+        invoked before each backoff sleep (logging hook). ``deadline``
+        overrides the policy's total retry-time budget for THIS call
+        (a router passes each request's remaining forward budget)."""
+        total = self.deadline if deadline is None else deadline
+        start = self._clock()
+        for attempt in range(1, self.max_attempts + 1):
+            try:
+                return fn(*args, **kwargs)
+            except self.retry_on as e:
+                if attempt >= self.max_attempts:
+                    raise
+                if total is not None:
+                    remaining = total - (self._clock() - start)
+                    if remaining <= 0:
+                        # budget exhausted: give up NOW — within the
+                        # caller's deadline, not attempts x max_delay
+                        raise
+                else:
+                    remaining = None
+                if on_retry is not None:
+                    on_retry(attempt, e)
+                hint = getattr(e, "retry_after_s", None)
+                try:
+                    hint = None if hint is None else float(hint)
+                except (TypeError, ValueError):
+                    hint = None
+                self.sleep(attempt, budget=remaining, hint=hint)
+        raise AssertionError("unreachable")
+
+
+def with_retries(fn: Callable, *args,
+                 policy: Optional[RetryPolicy] = None,
+                 on_retry: Optional[Callable] = None, **kwargs):
+    """Functional spelling: ``with_retries(fn, a, b, policy=p)``."""
+    return (policy or RetryPolicy()).run(fn, *args, on_retry=on_retry,
+                                         **kwargs)
+
+
+# ---------------------------------------------------------------------------
 # FaultInjector — env-var and context-manager driven fault simulation
 # ---------------------------------------------------------------------------
 
 # Known sites, each instrumented at exactly one layer of paddle_tpu (the
-# port instruments serve_backend, serve_hang and replica_stall so far):
+# port instruments the serving tier's: serve_backend, serve_hang,
+# replica_stall, router_forward, replica_spawn and replica_health):
 #   collective          wedge inside an eager collective (sleeps)
 #   host_drop           TCPStore get/wait raises TimeoutError
 #   ckpt_shard          corrupt a just-written checkpoint (marker+shard)

@@ -1,12 +1,13 @@
 """Inference: the predictor over ``jit.save`` artifacts, the
-continuous-batching engine and the HTTP server over both (port of
-paddle_tpu/inference/)."""
+continuous-batching engine, the HTTP server over both and the router over
+replica processes of that server (port of paddle_tpu/inference/)."""
 from .engine import (CacheExhausted, ContinuousBatchingEngine,
                      EngineOverloaded, GenerationPredictor,
                      RequestCancelled, create_engine_predictor)
 from .predictor import (Config, DataType, PrecisionType, Predictor,
                         PredictorPool, Tensor, create_predictor,
                         get_num_bytes_of_data_type, get_version)
+from .router import Replica, ReplicaSpec, Router
 from .serve import PredictorServer
 from .speculative import NGramProposer, SpeculativeConfig
 
@@ -15,4 +16,5 @@ __all__ = ["Config", "Predictor", "create_predictor", "Tensor", "DataType",
            "EngineOverloaded", "CacheExhausted", "RequestCancelled",
            "GenerationPredictor", "create_engine_predictor",
            "SpeculativeConfig", "NGramProposer", "PredictorServer",
+           "Router", "ReplicaSpec", "Replica",
            "get_version", "get_num_bytes_of_data_type"]

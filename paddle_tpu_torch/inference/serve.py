@@ -13,10 +13,14 @@ Endpoints:
                      engine's queue is saturated, or when the engine
                      broke; always carries uptime_s and metrics_seq (the
                      obs registry's mutation sequence, which moves while
-                     the process is live); with an engine, slot occupancy,
-                     queue depth, ticks, compiled programs, tick_model_eff
-                     and warm, the page-pool and prefix-cache fields
-                     (paged engines) and the speculative counters
+                     the process is live) and compilation (the kernel
+                     libraries this process compiled with nvcc and
+                     loaded); with an engine, slot occupancy,
+                     queue depth, ticks, admissions, compiled programs,
+                     tick_model_eff, warm and the launch counts of the
+                     engine's cache-path kernels (``kernel_launches``),
+                     the page-pool and prefix-cache fields (paged
+                     engines) and the speculative counters
   GET  /metrics   -> the obs registry as Prometheus-style text (the
                      engine's ptpu_engine_* series among it)
   GET  /metadata  -> {"inputs": [names], "outputs": [names]}
@@ -96,6 +100,7 @@ import numpy as np
 from .. import obs as _obs
 from ..distributed import resilience as _resil
 from ..framework.env import bool_env, float_env
+from ..kernels import _build
 from .engine import (CacheExhausted, EngineOverloaded, GenerationPredictor,
                      RequestCancelled)
 from .predictor import Config, create_predictor
@@ -287,14 +292,17 @@ class PredictorServer:
                 "metrics_seq": _obs.metrics.registry.seq(),
                 "queue_depth": self._depth, "inflight": self.inflight(),
                 "draining": draining, "max_queue": self.max_queue,
-                "failure_streak": self._failure_streak}
+                "failure_streak": self._failure_streak,
+                # the kernels this process compiled (nvcc) and loaded: a
+                # replica started after the build compiles none
+                "compilation": _build.summary()}
         st = None
         if self.engine is not None:
             st = self.engine.stats()
             body["engine"] = {k: st[k] for k in (
                 "slots", "active", "free", "queued", "max_queue", "ticks",
                 "compiled_programs", "tick_model_eff", "tp",
-                "mesh_devices")}
+                "mesh_devices", "admitted", "kernel_launches")}
             body["engine"]["warm"] = self.engine.warm
             if st.get("paged"):
                 body["engine"].update({k: st[k] for k in (

@@ -7,7 +7,9 @@ by a hash of the source and the flags: an edited source rebuilds, an
 unchanged one loads the library already there. ``build()`` starts one
 ``nvcc`` per missing library, all at once. The compiler's output, with
 ptxas's registers, shared memory and spills of every kernel (``-Xptxas
--v``), is kept beside each library (``ptxas_report``).
+-v``), is kept beside each library (``ptxas_report``). ``summary()`` says which
+libraries this process compiled and which it loaded: a serving replica
+whose libraries were built before it started compiles none.
 
 There is no fallback: when ``nvcc`` is missing or a build fails this
 module raises. The CPU path never comes here — kernel wrappers run their
@@ -24,7 +26,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build", "load", "ptxas_report"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build", "load", "ptxas_report",
+           "summary"]
 
 SOURCES = ("mega_decode", "cache_write", "flash_attention",
            "flash_attention_sm90", "flash_attention_sm90_f32", "fused_ce")
@@ -35,6 +38,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _lock = threading.Lock()
 _loaded: dict = {}
+_compiled: list = []          # (name, seconds) of every nvcc run here
 
 
 def _nvcc() -> str:
@@ -84,9 +88,23 @@ def build(names=SOURCES) -> dict:
         else:
             out.with_suffix(".log").write_bytes(log)
             os.replace(tmp, out)       # atomic: readers never see half a file
+            _compiled.append((name, seconds[name]))
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return seconds
+
+
+def summary() -> dict:
+    """This process's builds: the ``nvcc`` runs (successful ones, by
+    library, with their seconds) and the libraries loaded so far. Takes no
+    lock (``load`` holds it through a build of minutes, and a server's
+    /healthz must not wait on that): each copy below is one C-level call
+    under the interpreter lock."""
+    runs = list(_compiled)
+    loaded = sorted(list(_loaded))
+    return {"nvcc_runs": len(runs), "built": [n for n, _ in runs],
+            "compile_wall_s": round(sum(t for _, t in runs), 3),
+            "loaded": loaded}
 
 
 def ptxas_report(name: str) -> list:

@@ -18,6 +18,7 @@ import torch
 
 from paddle_tpu import jit as jjit
 from paddle_tpu.inference import predictor as jpred
+from paddle_tpu.inference import router as jrouter
 from paddle_tpu.inference import serve as jserve
 from paddle_tpu.inference.engine import \
     ContinuousBatchingEngine as JaxEngine
@@ -33,6 +34,7 @@ from paddle_tpu.nn.functional import activation as jact
 from paddle_tpu.nn.functional import common as jcommon
 from paddle_tpu_torch import jit as tjit
 from paddle_tpu_torch.inference import predictor as tpred
+from paddle_tpu_torch.inference import router as trouter
 from paddle_tpu_torch.inference import serve as tserve
 from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
 from paddle_tpu_torch.models import generation as tgen
@@ -59,7 +61,7 @@ def _attr(mod, dotted):
 
 
 # (port module, reference module, dotted name): the nn bindings (C8), the
-# serving tier's engine and server surface, obs and resilience
+# serving tier's engine and server surface, obs, resilience and the router
 _NAMES = [(tF, jF, n) for n in ("layer_norm", "cross_entropy")] + [
     (tnn, jnn, n) for n in ("Linear.__init__", "Embedding.__init__",
                             "Embedding.forward", "LayerNorm.__init__",
@@ -92,7 +94,16 @@ _NAMES = [(tF, jF, n) for n in ("layer_norm", "cross_entropy")] + [
         "efficiency.train_step_flops", "efficiency.tree_nbytes")] + [
     (tresil, jresil, n) for n in (
         "maybe_inject", "should_fire", "wedge_seconds", "arm_fault",
-        "_parse_spec", "FaultInjector.__init__")]
+        "_parse_spec", "FaultInjector.__init__", "RetryPolicy.__init__",
+        "RetryPolicy.from_env", "RetryPolicy.delay", "RetryPolicy.sleep",
+        "RetryPolicy.run", "with_retries")] + [
+    (trouter, jrouter, n) for n in (
+        "Router.__init__", "Router.start", "Router.wait_ready",
+        "Router.stop", "Router.rolling_restart", "Router.forward_generate",
+        "Router.replicas", "Router.stats", "Router.render_metrics",
+        "ReplicaSpec.__init__", "ReplicaSpec.argv", "Replica.__init__",
+        "RespawnGovernor.__init__", "RespawnGovernor.note_death",
+        "single_device_child_env", "main")]
 
 
 def test_capture_takes_a_torch_profile_flag():
