@@ -79,6 +79,13 @@ failure:
    ignore index (an MLM batch of 32 x 128), bf16 and f32, beside
    F.cross_entropy with the same ignored rows; each held and timed as
    above.
+   Phases 24-25's shapes: B4 at the draft's steps (B=8, L=2048, 12 heads
+   of 64, f32 q and cache, at its chunk edges; timed serving-like);
+   kv_paged_write into GPT-6.7B's [1024, 16, 32, 128] bf16 pools from
+   bf16 rows, bit-exact, timed at the verify shape (8 x 5 rows) and an
+   admission; B1 bf16 causal at GPT-1.3B's (4, 16, 2048, 128) on the
+   wgmma D-128 kernels; B2 at one loss chunk, N=2048 x V=50304, in f32
+   (the fused loss's logits dtype); each held and timed as above.
 4. serving, bf16 cache: gpt_125m with seeded random weights behind
    ContinuousBatchingEngine(slots=8, max_len=1024, tick_tokens=8) and
    PredictorServer; 8 concurrent POST /generate. The mega-decode launch
@@ -249,7 +256,47 @@ failure:
    replica's series (render_tier). Both replicas drained: /generate gets
    503 no_replica_ready with Retry-After. router.stop() ends every
    replica process.
-24. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
+24. draft-model speculation at full width: GPTForCausalLM(gpt_6p7b(),
+   seed=0).bfloat16() (32 layers, hidden 4096, V 50304; its host draw
+   and copy timed on a line of its own) behind the paged engine (slots
+   8, max_len 2048, 16-token pages, 1024 pages, prefix cache, bf16 pool)
+   and the server, drafted by GPTForCausalLM(gpt_125m(), seed=1) in f32
+   (its own f32 slot cache), spec_k 4; 8 concurrent POST /generate of
+   16-300-token prompts, 32 new tokens each. The same prompts through a
+   plain paged engine on the same weights first: the draft engine's
+   tokens must be identical, except that at a first differing token the
+   bf16 target's own top-2 logit margin over that prefix (one cacheless
+   forward) is below DRAFT_MARGIN, and the request is not compared
+   beyond it. Every tick is a verify tick; kv_paged_write launches equal
+   (admissions + verify ticks) x 32, B4 launches draft ticks x 3 x 12,
+   nothing else and no plain version. /healthz reports speculative
+   "draft" and the counters; the same requests once more with each draft
+   proposal and each verify forward timed by CUDA events, in one
+   profiled window (device busy share). Then the full-acceptance oracle:
+   an f32 gpt_125m drafted by a copy of its own weights (f32 slot cache,
+   4 requests) held to the CPU oracle by phase 5's rule; acceptance >
+   0.9 and > 2 tokens per slot per verify tick; B4 launches draft ticks
+   x 3 x 12.
+25. training memory features at bench.py's GPT-1.3B step (bench.py:
+   270-283): TrainStep(GPTForCausalLM(gpt_1p3b(recompute=True,
+   scan_layers=True, fused_loss_chunk=2048, recompute_policy="full"),
+   seed=0).bfloat16(), make_loss_fn(), AdamW(lr=1e-4,
+   multi_precision=False)) at batch 4 x 2048, full width and depth, 1
+   warm step then 5: finite, falling losses, the first within 0.5 of ln V
+   + H r^2 / 2; B1 forward 2 x 24 a step (the recompute runs it again),
+   backward 24, all on the tensor-core kernels; B2 4 + 4 a step (four
+   2048-token chunks); no plain version; peak memory and ms a step; one
+   step profiled. The same start weights under recompute_policy "dots"
+   for 2 steps, and copied into an unrolled model trained with the
+   features off (no recompute, loss_fn) for 1 + 5 steps: both within
+   FEATURES_LOSS_ATOL of the features-on losses, step by step, the peak
+   memory and ms a step of both runs printed, and beside each the memory
+   one loss and backward alone takes above what was held before it (the
+   activations, apart from the optimizer's update). Then the f32 oracle: the
+   same config cut to 2 layers, f32, card vs a CPU copy at batch 2 x
+   1100 (the fused loss in two chunks, the second padded), loss and every
+   grad by phase 7's rule (B1 forward 2 + 2, backward 2, B2 2 + 2).
+26. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
    wgmma kernels of phases 8 and 14, and the f32 3xTF32 ones of phases 7
    and 13, their launches from the tensor-core counts; B3 five times:
    kv_slot_write and kv_paged_write with their launches in phases 6 and
@@ -259,9 +306,12 @@ failure:
    with their launches in phases 15 and 16, B1 at D 128 and B2 at V 32000
    with phase 18's; then BERT/ERNIE's rows: B1 non-causal bf16 with phase
    19's launches, B1 f32 with phase 20's, B2 at V 2 with phase 21's and at
-   V 30522 with phase 20's), the serving lines of phases 15 and 16,
-   phase 19's latency and phase 22's and 23's figures, the card line, and
-   last the {"ok": true, "device": {...}} line.
+   V 30522 with phase 20's; then phase 24's and 25's rows: B4 at the
+   draft's shape and kv_paged_write into GPT-6.7B's pool with phase 24's
+   launches, B1 at GPT-1.3B's D 128 and B2 on an f32 loss chunk with
+   phase 25's features-on launches), the serving lines of phases 15 and
+   16, phase 19's latency and phase 22's to 25's figures, the card line,
+   and last the {"ok": true, "device": {...}} line.
 
 ``python3 chip_smoke.py --sp-cards`` on a host with 4 or more cards runs
 phases 1 and 2 and then only phase 13's run with one shard on each of
@@ -310,6 +360,27 @@ LLAMA_V, LLAMA_NP = 32000, B_SLICE * 2048 // 16
 # over as many sequential runs; BERT-base fine-tuned at 32 x 128
 ERNIE_S, ERNIE_RUNS, FT_BATCH = 128, 50, 32
 BERT_V, BERT_H, BERT_HD = 30522, 12, 64
+# draft-model speculation (phase 24): GPT-6.7B (32 layers of 32 heads of
+# 128, bf16) served at max_len 2048 from a 1024-page bf16 pool, drafted k =
+# 4 a tick by GPT-125M (12 layers, f32 slot cache). A differing token is
+# accepted only where the bf16 target's own top-2 logit margin at that
+# prefix is below DRAFT_MARGIN: the verify forward (5 tokens a row) and
+# plain decode (1) run the bf16 GEMMs at other row counts, so their sums
+# round differently, and through 32 bf16 layers that moves a logit by
+# about 2 % (~0.1 where the top logits sit near 5; one bf16 step there
+# is 2^-5 = 0.031)
+GPT67_LAYERS, DRAFT_LAYERS, DRAFT_K, DRAFT_NP = 32, 12, 4, 1024
+DRAFT_MARGIN = 0.25
+# bench.py's GPT-1.3B step (phase 25, bench.py:270-283): 24 layers of 16
+# heads of 128, batch 4 x 2048, recompute + scan_layers + fused loss in
+# chunks of 2048 tokens (4 a step). The features-off run on the same
+# weights and batch differs by the loss's logits (f32 in the chunks, bf16
+# in loss_fn: one bf16 step of a logit near 4 is 2^-6) and what the
+# updates make of that: its losses must stay within FEATURES_LOSS_ATOL of
+# the features-on run's, step by step (0.2 % of the ~11.2 start, below a
+# step's fall)
+G13_LAYERS, G13_B, G13_S, G13_CHUNK = 24, 4, 2048, 2048
+FEATURES_LOSS_ATOL = 0.02
 
 
 def fail(msg):
@@ -521,6 +592,28 @@ def check_mega_decode_llama(torch, md, flush, rng_pos):
             for pv, where in ((rng_pos, "serving-like pos"),
                               ([L] * B, "full cache"))}
     return worst, rows
+
+
+def check_mega_decode_draft(torch, md, flush, rng_pos):
+    """Phase 3, B4 at phase 24's draft shape (GPT-125M's single-token
+    steps: B=8, L=2048, 12 heads of 64, f32 q and cache): kernel vs plain
+    at positions that include the chunk edges of its plan and a free
+    slot's, then timed serving-like (the draft steps at pos + 1..3)."""
+    B, L, nh, hd = B_SLICE, 2048, NKV, HD
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    chunk, nchunks = md.plan_chunks(B, nh, L, md._sm_count(0))
+    print(f"  mega_decode_step chunks at B={B} nkv={nh} L={L}: {nchunks} "
+          f"of {chunk} rows, {B * nh * nchunks} blocks", flush=True)
+    pos_sets = [[p + 2 for p in rng_pos], [L] * B,
+                [1, chunk - 1, chunk, chunk + 1, L - chunk, L - 1, L, 3]]
+    worst = max(b4_vs_plain(torch, md, gen, torch.float32, torch.float32,
+                            1e-5, nh, nh, hd, pv, L=L) for pv in pos_sets)
+    print(f"  mega_decode_step draft f32 q and cache, L={L}: max |ctx err| "
+          f"{worst:.3e} (tol 1e-5), caches bit-exact", flush=True)
+    row = b4_timed(torch, md, flush, gen, (B, L, nh, nh, hd), torch.float32,
+                   torch.float32, [p + 2 for p in rng_pos],
+                   "draft f32 serving-like pos")
+    return worst, row
 
 
 def check_slot_write(torch, cw, flush, rng_pos):
@@ -796,8 +889,9 @@ def check_kv_paged_write(torch, np, cw, flush, rng_pos, NP=NUM_PAGES,
     them; every case of ``cases`` in every kind of ``kinds``, both pool
     leaves compared (NaN where NaN: one k head row is all zero, one v row
     holds a NaN). Times the main path's rows (``timing``: decode, n = 8 a
-    half, and admission, n = 512) beside the composite, index_put_ on each
-    leaf with the indices precomputed, and the byte bound."""
+    half, verify, n = 8 x 5, and admission, n = 512) beside the
+    composite, index_put_ on each leaf with the indices precomputed, and
+    the byte bound."""
     PS = PAGE
     PM, H = L // PS, nkv * hd
     dev = torch.device("cuda")
@@ -867,8 +961,9 @@ def check_kv_paged_write(torch, np, cw, flush, rng_pos, NP=NUM_PAGES,
 
     rows = {}
     for kind, shape, rows_kind in timing:
-        case = ((shape, B_SLICE, 1, None, None, None, {})
-                if shape == "decode" else (shape, 1, 512, 0, None, None, {}))
+        case = {"decode": (shape, B_SLICE, 1, None, None, None, {}),
+                "verify": (shape, B_SLICE, DRAFT_K + 1, None, None, None,
+                           {})}.get(shape, (shape, 1, 512, 0, None, None, {}))
         k, v, bt, pos, _, _, n_rows, entries = inputs(case, rows_kind,
                                                        specials=False)
         pools = [pool(kind), pool(kind)]
@@ -1696,14 +1791,16 @@ def check_sampling(torch, np, gm, flush):
 
 
 def train_parity(torch, pkg, build=None, shape=(2, 128), layers=LAYERS,
-                 loss_of=None, what="f32 parity"):
+                 loss_of=None, what="f32 parity", recompute=False,
+                 b2=(1, 1)):
     """Phase 7, first part: one f32 loss + backward of gpt_125m on the
     card against a CPU copy of the same weights, batch 2 x seq 128; every
     B1 launch on the 3xTF32 tensor-core kernels, B2 one launch each way.
     Phase 18 the same with ``build(device=..., seed=...)``'s model at
     ``shape``, B1 on the path ``_tc_path`` gives its head size; phase 20
     with BERT's models and ``loss_of(model, ids)``, ``layers`` B1 launches
-    each way (0 on its masked path)."""
+    each way (0 on its masked path); phase 25 with ``recompute`` (B1
+    forward twice a layer) and the fused loss's ``b2`` launches."""
     if build is None:
         def build(**kw):
             return pkg["GPT"](pkg["gpt_125m"](), **kw)
@@ -1729,14 +1826,17 @@ def train_parity(torch, pkg, build=None, shape=(2, 128), layers=LAYERS,
     counts = {w.__name__: (w.tc_launches, w.simt_launches)
               for w in (fa.flash_attn_fwd, fa.flash_attn_bwd)}
     D = model.cfg.hidden_size // model.cfg.num_heads
-    want = (layers, 0) if fa._tc_path(torch.float32, D) else (0, layers)
-    if counts != {n: want for n in counts}:
+    tc = fa._tc_path(torch.float32, D)
+    want = {}
+    for name, n in (("flash_attn_fwd", layers * (2 if recompute else 1)),
+                    ("flash_attn_bwd", layers)):
+        want[name] = (n, 0) if tc else (0, n)
+    if counts != want:
         fail(f"{what}: B1 (tensor-core, SIMT) launches {counts} != "
-             f"{want} each: f32 at D {D} must run the kernels _tc_path "
-             "picks")
-    if (ce.ce_fwd.launches, ce.ce_bwd.launches) != (1, 1):
+             f"{want}: f32 at D {D} must run the kernels _tc_path picks")
+    if (ce.ce_fwd.launches, ce.ce_bwd.launches) != b2:
         fail(f"{what}: B2 launches {ce.ce_fwd.launches} + "
-             f"{ce.ce_bwd.launches} != 1 + 1")
+             f"{ce.ce_bwd.launches} != {b2[0]} + {b2[1]}")
     rel = abs(losses[0] - losses[1]) / abs(losses[1])
     if not rel <= 1e-5:
         fail(f"{what}: loss card {losses[0]} cpu {losses[1]} (rel {rel} "
@@ -1757,7 +1857,8 @@ def train_parity(torch, pkg, build=None, shape=(2, 128), layers=LAYERS,
     print(f"  {what}: loss card {losses[0]:.6f} cpu {losses[1]:.6f} (rel "
           f"{rel:.2e}, tol 1e-5); worst grad max|diff|/max|g| {worst:.2e} "
           f"({worst_name}; tol 1e-4) over {len(grads[1])} parameters; B1 "
-          f"(tensor-core, SIMT) launches {counts}, B2 1 + 1", flush=True)
+          f"(tensor-core, SIMT) launches {counts}, B2 {b2[0]} + {b2[1]}",
+          flush=True)
     return counts
 
 
@@ -3617,6 +3718,356 @@ def router_tier(torch, pkg, card, direct):
     return out
 
 
+def hold_to_plain(torch, model, prompts, got, want, what):
+    """Phase 24's token rule: each request's tokens equal the plain
+    engine's, except at a token where the bf16 target itself cannot tell
+    the top two apart: at the first differing token, one cacheless
+    forward of ``model`` over the common prefix must show a top-2 logit
+    margin below DRAFT_MARGIN, and the request is not compared beyond it.
+    Returns the number of requests identical to the end."""
+    same = 0
+    for p, g, w in zip(prompts, got, want):
+        diff = [i for i, (a, b) in enumerate(zip(g, w)) if a != b]
+        if not diff:
+            same += 1
+            continue
+        i = diff[0]
+        with torch.no_grad():
+            lg = model(torch.tensor([w[:i]], device=model.device))[0, -1]
+        top2 = torch.topk(lg.float(), 2).values
+        margin = float(top2[0] - top2[1])
+        print(f"  {what}: token {i - len(p)} of a {len(p)}-token prompt "
+              f"differs (spec {g[i]}, plain {w[i]}); the bf16 target's top-2 "
+              f"margin there {margin:.4f} (limit {DRAFT_MARGIN})", flush=True)
+        if not margin < DRAFT_MARGIN:
+            fail(f"{what}: tokens differ from plain decode where the "
+                 f"target's margin {margin} is not below {DRAFT_MARGIN}")
+    print(f"  {what}: {same} of {len(prompts)} requests identical to plain "
+          "decode to the end; the others held by the margin rule", flush=True)
+    return same
+
+
+def draft_window(torch, pkg, eng, url, prompts):
+    """Phase 24's extra, on the draft engine before it stops: /healthz
+    reports the draft engine and its counters; then the same requests
+    once more with each draft proposal and each verify forward timed on
+    the card's clock (CUDA events around the calls, both end in a host
+    read) inside one torch.profiler window (device busy share)."""
+    with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+        e = json.loads(r.read())["engine"]
+    keys = ("spec_ticks", "tokens_drafted", "tokens_accepted",
+            "tokens_rejected", "acceptance_rate", "accepted_tokens_per_tick")
+    if e.get("speculative") != "draft" or e.get("spec_k") != DRAFT_K or any(
+            k not in e for k in keys):
+        fail(f"/healthz engine: {e}")
+    spans = {"draft": [], "verify": []}
+
+    def timed_call(fn, acc):
+        def run(*a):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            t0.record()
+            out = fn(*a)
+            t1.record()
+            acc.append((t0, t1))
+            return out
+        return run
+    eng._proposer.propose = timed_call(eng._proposer.propose,
+                                       spans["draft"])
+    eng._verify_forward = timed_call(eng._verify_forward, spans["verify"])
+    try:
+        prof, wall_us = profile_window(
+            torch, "draft engine, the same requests again",
+            lambda: post_all(url, prompts, MAX_NEW), top=8)
+    finally:
+        del eng._proposer.propose, eng._verify_forward
+    torch.cuda.synchronize()
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    n = len(spans["verify"])
+    busy = sum(r[0] for r in prof) / wall_us if prof else None
+    b4_us = sum(r[0] for r in prof if "mega_decode" in r[2])
+    print(f"  healthz: speculative {e['speculative']}, spec_k {e['spec_k']}, "
+          + ", ".join(f"{k} {e[k]}" for k in keys), flush=True)
+    print(f"  {n} verify ticks: draft {ms['draft']:.1f} ms, verify "
+          f"{ms['verify']:.1f} ms on the card's clock ({ms['draft'] / n:.2f}"
+          f" + {ms['verify'] / n:.2f} ms a tick); window {wall_us / 1e3:.1f} "
+          "ms, device busy "
+          + ("not measured" if busy is None else f"{100 * busy:.1f} %")
+          + f"; B4 (the draft's steps) {b4_us / 1e3:.3f} ms device",
+          flush=True)
+    return {"draft_ms_tick": ms["draft"] / n, "verify_ms_tick":
+            ms["verify"] / n, "window_ms": wall_us / 1e3, "busy_share": busy,
+            "b4_device_ms": b4_us / 1e3}
+
+
+def draft_serving(torch, pkg, card):
+    """Phase 24: draft-model speculation at full width: GPT-6.7B (bf16,
+    paged bf16 pool, prefix cache) drafted by GPT-125M (f32 slot cache),
+    held to a plain paged engine on the same weights by DRAFT_MARGIN's
+    rule, with its launch counts; then the full-acceptance oracle
+    (gpt_125m drafted by a copy of its own weights, f32 slot cache, vs
+    the CPU by phase 5's rule). Returns the numbers the summary takes."""
+    np, GPT = pkg["np"], pkg["GPT"]
+    print("phase 24: draft-model speculation: GPT-6.7B (bf16, 32 layers, "
+          "paged bf16 pool of 1024 pages) drafted by GPT-125M (f32 slot "
+          f"cache), spec_k={DRAFT_K}", flush=True)
+    release(torch)
+    t0 = time.perf_counter()
+    model = GPT(pkg["gpt_6p7b"](), seed=0)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    model = model.bfloat16()
+    torch.cuda.empty_cache()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"  GPT-6.7B host draw and copy: {draw_s:.1f} s ({n / 1e9:.3f} B "
+          "parameters drawn by one CPU generator, one at a time, then "
+          "copied to the card in f32)", flush=True)
+    draft = GPT(pkg["gpt_125m"](), seed=1)
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(0, V, int(m)) for m in rng.integers(16, 301, 8)]
+    paged = dict(paged=True, page_size=PAGE, num_pages=DRAFT_NP,
+                 prefix_cache=True)
+    print("  plain paged decode, the same weights and prompts:", flush=True)
+    plain = serve(torch, pkg, model, "bfloat16", prompts, max_len=2048,
+                  **paged)
+    paged_launch_check(plain, "phase 24 plain", GPT67_LAYERS)
+    print("  draft-model speculation:", flush=True)
+    spec = serve(torch, pkg, model, "bfloat16", prompts, max_len=2048,
+                 speculative="draft", draft_model=draft, spec_k=DRAFT_K,
+                 extra=lambda eng, url: draft_window(torch, pkg, eng, url,
+                                                     prompts), **paged)
+    st = spec["stats"]
+    check_pool(spec)
+    if not st["ticks"] == st["spec_ticks"] > 0:
+        fail(f"phase 24: {st['ticks']} ticks, {st['spec_ticks']} verify: "
+             "every tick of a draft engine is a verify tick")
+    kvp = (st["admitted"] + st["spec_ticks"]) * GPT67_LAYERS
+    b4 = st["spec_ticks"] * (DRAFT_K - 1) * DRAFT_LAYERS
+    expect_launches(f"phase 24 (kv_paged_write = ({st['admitted']} "
+                    f"admissions + {st['spec_ticks']} verify ticks) x "
+                    f"{GPT67_LAYERS}; mega = {st['spec_ticks']} draft ticks "
+                    f"x {DRAFT_K - 1} x {DRAFT_LAYERS})", spec["counts"],
+                    kv_paged_write=kvp, mega_decode_step=b4)
+    same = hold_to_plain(torch, model, prompts, spec["toks"], plain["toks"],
+                         "GPT-6.7B draft speculation")
+    print(f"  acceptance {st['acceptance_rate']}, "
+          f"{st['accepted_tokens_per_tick']} tokens per slot per verify "
+          f"tick; {spec['ms_tick']:.2f} ms a verify tick against plain "
+          f"decode's {plain['ms_tick']:.2f} ms a tick of {TICK} ({card})",
+          flush=True)
+    out = {"b4": b4, "kvp": kvp, "identical": same,
+           "acceptance_rate": st["acceptance_rate"],
+           "accepted_tokens_per_tick": st["accepted_tokens_per_tick"],
+           "ms_tick": spec["ms_tick"], "plain_ms_tick": plain["ms_tick"],
+           "wall": spec["wall"], "plain_wall": plain["wall"],
+           "draw_s": draw_s, **spec["extra"]}
+    del model, draft
+    release(torch)
+
+    print("  full-acceptance oracle: gpt_125m f32 drafted by a copy of its "
+          "own weights, f32 slot cache, vs the sequential CPU oracle",
+          flush=True)
+    target = GPT(pkg["gpt_125m"](), seed=0)
+    copy = GPT(pkg["gpt_125m"](), seed=5)
+    oracle = GPT(pkg["gpt_125m"](), device="cpu", seed=6)
+    weights = {n: p.detach().cpu().numpy()
+               for n, p in target.named_parameters()}
+    pkg["load"](copy, weights)
+    pkg["load"](oracle, weights)
+    prompts = [rng.integers(0, V, int(m)) for m in rng.integers(16, 301, 4)]
+    run = serve(torch, pkg, target, "float32", prompts, slots=4,
+                speculative="draft", draft_model=copy, spec_k=DRAFT_K)
+    st = run["stats"]
+    expect_launches(f"phase 24 oracle (mega = {st['spec_ticks']} draft "
+                    f"ticks x {DRAFT_K - 1} x {LAYERS})", run["counts"],
+                    mega_decode_step=st["spec_ticks"] * (DRAFT_K - 1)
+                    * LAYERS)
+    if not (st["acceptance_rate"] > 0.9
+            and st["accepted_tokens_per_tick"] > 2):
+        fail(f"full-acceptance draft: acceptance {st['acceptance_rate']}, "
+             f"{st['accepted_tokens_per_tick']} tokens per verify tick")
+    check_oracle(torch, pkg, oracle, prompts, run["toks"],
+                 "full-acceptance draft speculation")
+    print(f"  acceptance {st['acceptance_rate']}, "
+          f"{st['accepted_tokens_per_tick']} tokens per slot per verify "
+          f"tick, {st['spec_ticks']} verify ticks", flush=True)
+    out["oracle"] = {k: st[k] for k in ("acceptance_rate",
+                                        "accepted_tokens_per_tick",
+                                        "spec_ticks")}
+    del target, copy, oracle
+    release(torch)
+    return out
+
+
+def g13_steps(torch, pkg, model, ids, recompute_policy=None, steps=5,
+              profile=False, what=""):
+    """TrainStep(model, model.make_loss_fn(), AdamW(lr 1e-4, no master
+    weights)) at ``ids``: a warm step, then ``steps`` timed ones with the
+    kernel launches counted (every plain version too) and the peak
+    memory from the warm step on; then one loss and backward alone, whose
+    peak above the memory held before it is what the activations (and the
+    grads) take, apart from the optimizer's update. Returns (losses, ms a
+    step, launches, (tensor-core, SIMT) B1 paths, peak GiB, forward +
+    backward GiB)."""
+    fa, ce, fb = pkg["fa"], pkg["ce"], pkg["fb"]
+    if recompute_policy is not None:
+        from paddle_tpu_torch.distributed.recompute import \
+            resolve_checkpoint_policy
+        model.gpt.blocks._ckpt_policy = resolve_checkpoint_policy(
+            recompute_policy)
+    opt = pkg["AdamW"](learning_rate=1e-4, parameters=model.parameters(),
+                       multi_precision=False)
+    step = pkg["TrainStep"](model, model.make_loss_fn(), opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(ids, ids)]
+    torch.cuda.synchronize()
+    plain, restore = _count_plain([fa, ce, fb])
+    reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
+    ce.ce_fwd.launches = ce.ce_bwd.launches = 0
+    try:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(step(ids, ids))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / max(steps, 1) * 1e3
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {"flash_attn_fwd": fa.flash_attn_fwd.launches,
+              "flash_attn_bwd": fa.flash_attn_bwd.launches,
+              "ce_fwd": ce.ce_fwd.launches, "ce_bwd": ce.ce_bwd.launches}
+    paths = {w.__name__: (w.tc_launches, w.simt_launches)
+             for w in (fa.flash_attn_fwd, fa.flash_attn_bwd)}
+    torch.cuda.reset_peak_memory_stats()
+    rest = torch.cuda.memory_allocated()
+    step.loss_fn(model(ids), ids).backward()
+    torch.cuda.synchronize()
+    fwd_bwd = (torch.cuda.max_memory_allocated() - rest) / 2 ** 30
+    for p in model.parameters():
+        p.grad = None
+    if any(plain.values()):
+        fail(f"{what}: plain versions ran: {plain}")
+    if profile:
+        profile_window(torch, what, lambda: step(ids, ids))
+    vals = [float(x) for x in losses[:steps + 1]]
+    print(f"  {what}: losses {['%.4f' % x for x in vals]} (warm step "
+          f"first); {ms:.1f} ms/step ({G13_B * G13_S / (ms / 1e3):.0f} "
+          f"tokens/s, {steps} steps); peak memory {peak:.2f} GiB (one loss "
+          f"and backward alone: {fwd_bwd:.2f} GiB above the {rest / 2**30:.2f}"
+          f" GiB held); launches {counts}, (tensor-core, SIMT) {paths}",
+          flush=True)
+    del step, opt
+    torch.cuda.empty_cache()
+    return vals, ms, counts, paths, peak, fwd_bwd
+
+
+def gpt13_training(torch, pkg, card):
+    """Phase 25: the training memory features at bench.py's GPT-1.3B
+    step (recompute "full", scan_layers, fused_loss_chunk 2048, AdamW
+    without master weights, batch 4 x 2048), full width and depth; then
+    the same weights with the features off (an unrolled model, plain
+    loss_fn), "dots" for two steps, and the f32 oracle at 2 layers
+    against the CPU. Returns the numbers the summary takes."""
+    np, GPT, cfg13 = pkg["np"], pkg["GPT"], pkg["gpt_1p3b"]
+    print("phase 25: training memory features at bench.py's GPT-1.3B step "
+          "(24 layers, hidden 2048; recompute, scan_layers, fused loss in "
+          f"chunks of {G13_CHUNK}), AdamW without master weights, batch "
+          f"{G13_B} x {G13_S}", flush=True)
+    release(torch)
+    t0 = time.perf_counter()
+    model = GPT(cfg13(recompute=True, scan_layers=True,
+                      fused_loss_chunk=G13_CHUNK, recompute_policy="full"),
+                seed=0).bfloat16()
+    torch.cuda.synchronize()
+    print(f"  built in {time.perf_counter() - t0:.1f} s (host draw)",
+          flush=True)
+    w0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    rs = np.random.RandomState(25)
+    ids = torch.from_numpy(rs.randint(0, model.cfg.vocab_size,
+                                      (G13_B, G13_S))).to(model.device)
+    on = g13_steps(torch, pkg, model, ids, profile=True,
+                   what="features on (recompute full)")
+    vals, _, counts, paths, _, _ = on
+    steps = len(vals) - 1
+    b1f, b1b = 2 * G13_LAYERS * steps, G13_LAYERS * steps
+    chunks = G13_B * G13_S // G13_CHUNK
+    want = {"flash_attn_fwd": b1f, "flash_attn_bwd": b1b,
+            "ce_fwd": chunks * steps, "ce_bwd": chunks * steps}
+    if counts != want or paths != {"flash_attn_fwd": (b1f, 0),
+                                   "flash_attn_bwd": (b1b, 0)}:
+        fail(f"phase 25: launches {counts}, paths {paths} != {want} (B1 "
+             f"forward 2 x {G13_LAYERS} a step under recompute, backward "
+             f"{G13_LAYERS}, B2 {chunks} chunks a step each way; every B1 "
+             "launch on the tensor-core kernels)")
+    cfg = model.cfg
+    first = math.log(cfg.vocab_size) + \
+        cfg.hidden_size * cfg.initializer_range ** 2 / 2
+    if not all(math.isfinite(x) for x in vals):
+        fail(f"phase 25: non-finite loss in {vals}")
+    if not abs(vals[0] - first) <= 0.5:
+        fail(f"phase 25: first loss {vals[0]} not within 0.5 of {first:.4f}"
+             " (ln V + H r^2 / 2)")
+    if not vals[-1] < min(vals[0], vals[1]):
+        fail(f"phase 25: the last loss is not below the first: {vals}")
+
+    with torch.no_grad():                 # "dots" from the same weights
+        for n, p in model.named_parameters():
+            p.copy_(w0[n])
+    dots, _, _, _, _, dots_gib = g13_steps(torch, pkg, model, ids, "dots",
+                                           steps=1,
+                                           what='recompute_policy "dots"')
+    d = max(abs(a - b) for a, b in zip(dots, vals))
+    if not d <= FEATURES_LOSS_ATOL:
+        fail(f"phase 25: dots losses {dots} vs full {vals[:2]}: max "
+             f"|diff| {d} > {FEATURES_LOSS_ATOL}")
+    del model
+    torch.cuda.empty_cache()
+
+    plain = GPT(cfg13(), seed=0).bfloat16()  # unrolled, features off
+    with torch.no_grad():
+        own = dict(plain.named_parameters())
+        for n, t in w0.items():
+            if "__" in n:                 # a stacked leaf: one a block
+                head, leaf = n.split(".blocks.")
+                for i, blk in enumerate(plain.gpt.blocks):
+                    dict(blk.named_parameters())[
+                        leaf.replace("__", ".")].copy_(t[i])
+            else:
+                own[n].copy_(t)
+    off = g13_steps(torch, pkg, plain, ids, what="features off (unrolled, "
+                    "no recompute, plain loss_fn)")
+    d = max(abs(a - b) for a, b in zip(off[0], vals))
+    if not d <= FEATURES_LOSS_ATOL:
+        fail(f"phase 25: features-off losses {off[0]} vs on {vals}: max "
+             f"|diff| {d} > {FEATURES_LOSS_ATOL}")
+    print(f"  features on vs off: max |loss diff| {d:.2e} (limit "
+          f"{FEATURES_LOSS_ATOL}); peak memory {on[4]:.2f} vs {off[4]:.2f} "
+          f"GiB, a loss and backward alone {on[5]:.2f} vs {off[5]:.2f} GiB "
+          f"(dots {dots_gib:.2f}); {on[1]:.1f} vs {off[1]:.1f} ms a step "
+          f"({card})", flush=True)
+    del plain, w0
+    release(torch)
+
+    n_chunks = -(-2 * 1100 // G13_CHUNK)
+    print("  f32 oracle: gpt_1p3b cut to 2 layers, f32, the three features "
+          f"on, card vs CPU at batch 2 x 1100 (the fused loss in {n_chunks} "
+          "chunks, the last padded)", flush=True)
+    cfg2 = dataclasses.replace(cfg13(recompute=True, scan_layers=True,
+                                     fused_loss_chunk=G13_CHUNK), num_layers=2)
+    train_parity(torch, pkg, build=lambda **kw: GPT(cfg2, **kw),
+                 shape=(2, 1100), layers=2, recompute=True,
+                 b2=(n_chunks, n_chunks),
+                 loss_of=lambda m, x: m.make_loss_fn()(m(x), x),
+                 what="GPT-1.3B width f32 oracle")
+    release(torch)
+    return {"counts": counts, "losses_on": vals, "losses_off": off[0],
+            "ms_on": on[1], "ms_off": off[1], "peak_gib_on": on[4],
+            "peak_gib_off": off[4], "fwd_bwd_gib_on": on[5],
+            "fwd_bwd_gib_off": off[5], "fwd_bwd_gib_dots": dots_gib,
+            "dots": dots}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3642,7 +4093,8 @@ def main():
                                              ErnieModel, GPTForCausalLM,
                                              LlamaForCausalLM, bert_base,
                                              ernie_3_base, generate,
-                                             gpt_125m, llama_13b)
+                                             gpt_125m, gpt_1p3b, gpt_6p7b,
+                                             llama_13b)
         from paddle_tpu_torch.models import generation as gm
         from paddle_tpu_torch.optimizer import AdamW
         # the module's name is shadowed by its flash_attention function
@@ -3663,6 +4115,7 @@ def main():
            "generate": generate,
            "Engine": ContinuousBatchingEngine, "Server": PredictorServer,
            "GPT": GPTForCausalLM, "gpt_125m": gpt_125m, "AdamW": AdamW,
+           "gpt_1p3b": gpt_1p3b, "gpt_6p7b": gpt_6p7b,
            "Llama": LlamaForCausalLM, "llama_13b": llama_13b,
            "TrainStep": TrainStep, "load": load_paddle_tpu_params,
            "Ernie": ErnieModel, "ernie_3_base": ernie_3_base,
@@ -3788,6 +4241,19 @@ def main():
         torch, ce, flush, V=BERT_V, cases=[(n_mlm, torch.bfloat16, None),
                                            (n_mlm, torch.float32, None)],
         timing_n=n_mlm, ignore_frac=0.25)
+    print("  phase 24's and 25's shapes:", flush=True)
+    b4d_err, b4d_row = check_mega_decode_draft(torch, md, flush, rng_pos)
+    kvpg_rows = check_kv_paged_write(
+        torch, np, cw, flush, rng_pos, NP=DRAFT_NP, nkv=32, hd=128, L=2048,
+        cases=[c for c in KV_PAGED_CASES if c[0] != "decode edges"],
+        kinds=(("bf16", "bf16"),),
+        timing=(("bf16", "verify", "bf16"), ("bf16", "admission", "bf16")))
+    b1g_errs, b1g_rows = check_flash(
+        torch, fa, flush, shape=(G13_B, 16, G13_S, 128),
+        cases=(("bfloat16", True, 0, 0),), timing=("bfloat16",))
+    b2g_errs, b2g_rows = check_ce(torch, ce, flush, V=50304,
+                                  cases=[(G13_CHUNK, torch.float32, None)],
+                                  timing=("float32",), timing_n=G13_CHUNK)
     del flush
     torch.cuda.empty_cache()
 
@@ -3938,7 +4404,10 @@ def main():
         fail("paddle_tpu_torch.inference.router is missing")
     router = router_tier(torch, pkg, card, tier)
 
-    print("phase 24: summary", flush=True)
+    spec = draft_serving(torch, pkg, card)
+    g13 = gpt13_training(torch, pkg, card)
+
+    print("phase 26: summary", flush=True)
     main_b4 = b4_rows[("bf16", "serving-like pos")]
     main_b3 = b3_rows["int8 data"]
     main_b3p = b3p_rows[("bf16 pages", "decode")]
@@ -4099,12 +4568,48 @@ def main():
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    # phase 24's and 25's shapes: B4 at the draft's f32 steps and
+    # kv_paged_write into GPT-6.7B's pool (phase 24's launches), B1 at
+    # GPT-1.3B's D 128 and B2 on one f32 loss chunk (phase 25's features-on
+    # run)
+    b1g, b2g = b1g_errs[(torch.bfloat16, True, 0)], \
+        b2g_errs[(G13_CHUNK, torch.float32, None)]
+    for name, src, replaces, n, err, row in (
+            ("mega_decode_step_draft125m", "mega_decode.cu",
+             "paddle_tpu/kernels/mega_decode.py:107", spec["b4"], b4d_err,
+             b4d_row),
+            ("kv_paged_write_gpt6p7b", "cache_write.cu",
+             "paddle_tpu/kernels/cache_write.py:171", spec["kvp"], 0.0,
+             kvpg_rows[("bf16", "verify")]),
+            ("flash_attn_fwd_gpt1p3b", "flash_attention_sm90.cu", b1_src,
+             g13["counts"]["flash_attn_fwd"], max(b1g["out"], b1g["lse"]),
+             b1g_rows[("bf16", "fwd")]),
+            ("flash_attn_bwd_gpt1p3b", "flash_attention_sm90.cu", b1_src,
+             g13["counts"]["flash_attn_bwd"],
+             max(b1g["dq"], b1g["dk"], b1g["dv"]), b1g_rows[("bf16", "bwd")]),
+            ("ce_fwd_chunk2048_f32", "fused_ce.cu",
+             "paddle_tpu/kernels/fused_ce.py:172", g13["counts"]["ce_fwd"],
+             max(b2g["per"], b2g["lse"]), b2g_rows[("f32", "fwd")]),
+            ("ce_bwd_chunk2048_f32", "fused_ce.cu",
+             "paddle_tpu/kernels/fused_ce.py:210", g13["counts"]["ce_bwd"],
+             b2g["dlogits"], b2g_rows[("f32", "bwd")])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     serving_summary({15: llama["serve15"], 16: llama["serve16"]}, card)
     print(f"  ERNIE-3.0-base Predictor.run latency, batch 1 x {ERNIE_S}: p50 "
           f"{ernie['p50']:.3f} ms, p99 {ernie['p99']:.3f} ms ({card})",
           flush=True)
     print("  serving tier: " + json.dumps(tier) + f" ({card})", flush=True)
     print("  router tier: " + json.dumps(router) + f" ({card})", flush=True)
+    print("  draft speculation: " + json.dumps(spec) + f" ({card})",
+          flush=True)
+    print("  GPT-1.3B memory features: " + json.dumps(g13) + f" ({card})",
+          flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,9 +1,10 @@
 """Distributed parallelism (port of paddle_tpu/distributed/): the
-single-controller device mesh, sequence-parallel attention and
-``resilience``'s retry schedule and fault injection."""
+single-controller device mesh, sequence-parallel attention, activation
+recomputation and ``resilience``'s retry schedule and fault injection."""
 from .mesh import (AXIS_ORDER, Mesh, get_mesh, init_mesh, mesh_axis_size,
                    set_mesh, use_mesh)
 from . import resilience
+from .recompute import recompute, recompute_sequential
 from .resilience import (FaultInjected, FaultInjector, RetryPolicy,
                          with_retries)
 from .sequence_parallel import (last_ring_dispatch, ring_attention,
@@ -12,4 +13,5 @@ from .sequence_parallel import (last_ring_dispatch, ring_attention,
 __all__ = ["AXIS_ORDER", "Mesh", "init_mesh", "get_mesh", "set_mesh",
            "use_mesh", "mesh_axis_size", "ring_attention",
            "ulysses_attention", "last_ring_dispatch", "resilience",
-           "RetryPolicy", "with_retries", "FaultInjector", "FaultInjected"]
+           "RetryPolicy", "with_retries", "FaultInjector", "FaultInjected",
+           "recompute", "recompute_sequential"]

@@ -9,12 +9,14 @@ from .predictor import (Config, DataType, PrecisionType, Predictor,
                         get_num_bytes_of_data_type, get_version)
 from .router import Replica, ReplicaSpec, Router
 from .serve import PredictorServer
-from .speculative import NGramProposer, SpeculativeConfig
+from .speculative import (DraftModelProposer, NGramProposer,
+                          SpeculativeConfig)
 
 __all__ = ["Config", "Predictor", "create_predictor", "Tensor", "DataType",
            "PrecisionType", "PredictorPool", "ContinuousBatchingEngine",
            "EngineOverloaded", "CacheExhausted", "RequestCancelled",
            "GenerationPredictor", "create_engine_predictor",
-           "SpeculativeConfig", "NGramProposer", "PredictorServer",
+           "SpeculativeConfig", "NGramProposer", "DraftModelProposer",
+           "PredictorServer",
            "Router", "ReplicaSpec", "Replica",
            "get_version", "get_num_bytes_of_data_type"]

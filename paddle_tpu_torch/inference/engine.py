@@ -58,13 +58,24 @@ matched, and prefills only the un-cached suffix at ``m_pos = M`` with
 has the length the slot row had and masked garbage contributes exact
 zeros, so greedy paged output is token-identical to the slot engine.
 
-Speculative mode (``speculative="ngram"``, ``speculative.py``): each tick
-drafts up to k tokens per slot on the host and, when any slot has a
-draft, runs ONE verify forward of ``[tok, d1..dk]`` for every slot
-instead of the plain tick; the emitted tokens are the target's own
-argmax, so output is token-identical to plain decode. Slot verify writes
+Speculative mode (``speculative.py``): each tick drafts up to k tokens
+per slot and, when any slot has a draft, runs ONE verify forward of
+``[tok, d1..dk]`` for every slot instead of the plain tick; the emitted
+tokens are the target's own argmax, so output is token-identical to plain
+decode. ``"ngram"`` drafts on the host. ``"draft"`` drafts with
+``draft_model`` (``DraftModelProposer``, its own f32 slot cache on the
+engine's device): every admission, slot or paged, also prefills the
+whole prompt into the draft's row for the slot (with a prefix hit the
+target prefills only the suffix), and every busy slot drafts k each tick,
+so every tick of a draft engine is a verify tick. Slot verify writes
 its k+1 rows per slot as plain tensor code; paged verify through
 ``kv_paged_write`` (N·(k+1) rows a half per launch).
+
+Scan-stacked models (``scan_layers``) keep one stacked (k_stack,
+v_stack) pair (``[L, N, max_len, ...]`` slots, ``[L, NP, PS, ...]``
+pools): a slot's rows and a page lie on axis 1 there, axis 0 for the
+per-layer caches, and the block table and write gates attached to a
+stacked pool are shared by its layers.
 
 Streaming: ``submit(..., progress_cb=cb)`` calls ``cb(tokens)`` from the
 engine thread with each new block of a request's tokens — its first token
@@ -90,15 +101,16 @@ the counters as a fresh engine's. ``compiled_program_count`` counts the
 distinct (program kind, bucket) pairs the engine has run: constant once
 warm, whatever prompt lengths arrive.
 
-Not ported yet (ROADMAP.md): the draft-model proposer, tensor
-parallelism, warmup through an executable store (``store=``).
+Not ported yet (ROADMAP.md): tensor parallelism, warmup through an
+executable store (``store=``).
 
 Env knobs as paddle_tpu's: PADDLE_TPU_SERVE_SLOTS (default 8),
 PADDLE_TPU_SERVE_PREFILL_BUCKETS (comma list, default powers of two),
 PADDLE_TPU_SERVE_TICK_TOKENS (default 8), PADDLE_TPU_SERVE_MAX_QUEUE
 (default 32), PADDLE_TPU_SERVE_PAGED (default 0), PADDLE_TPU_KV_PAGE
 (page size, default 16), PADDLE_TPU_SERVE_NUM_PAGES (default slots *
-ceil(max_len / page_size)), PADDLE_TPU_SERVE_SPEC ("ngram", default off),
+ceil(max_len / page_size)), PADDLE_TPU_SERVE_SPEC ("ngram" or "draft",
+default off),
 PADDLE_TPU_SERVE_SPEC_K (default 4), PADDLE_TPU_SERVE_SPEC_NGRAM (default
 3).
 """
@@ -121,10 +133,12 @@ from ..distributed import resilience as _resil
 from ..framework.env import int_env
 from ..kernels.cache_write import kv_paged_write, kv_slot_write
 from ..kernels.mega_decode import mega_decode_step
-from ..models.generation import _select_token, fold_in, prng_key
+from ..models.generation import (_select_token, cache_leaves, fold_in,
+                                 prng_key)
 from ..obs import efficiency as _eff
 from .paging import PageAllocator, PrefixTrie, pages_needed
-from .speculative import NGramProposer, resolve_speculative, verify_step
+from .speculative import (DraftModelProposer, NGramProposer,
+                          resolve_speculative, verify_step)
 
 __all__ = ["ContinuousBatchingEngine", "EngineOverloaded",
            "CacheExhausted", "RequestCancelled", "GenerationPredictor",
@@ -186,23 +200,34 @@ def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported yet — see ROADMAP.md")
 
 
+def _stacked(caches) -> bool:
+    """A scan-stacked (k_stack, v_stack) pair, not per-layer pairs."""
+    return isinstance(caches, tuple)
+
+
+def _halves(caches):
+    """The cache halves: every layer's k and v, or the two stacked
+    ones."""
+    return list(caches) if _stacked(caches) else [
+        half for pair in caches for half in pair]
+
+
 def _attach_page_meta(caches, **meta):
     """Attach block-table / write-gate tensors (``bt``, ``live``,
-    ``wlen``) to every per-layer pool dict, in place; returns ``caches``.
-    Pair every call with ``_strip_page_meta``."""
-    for kc, vc in caches:
-        kc.update(meta)
-        vc.update(meta)
+    ``wlen``) to every pool dict, in place (a stacked pool's layers share
+    them); returns ``caches``. Pair every call with
+    ``_strip_page_meta``."""
+    for d in _halves(caches):
+        d.update(meta)
     return caches
 
 
 def _strip_page_meta(caches):
     """Inverse of ``_attach_page_meta``: drop everything but the pool
-    leaves (``pages``, ``scale``) from every per-layer dict, in place."""
-    for kc, vc in caches:
-        for d in (kc, vc):
-            for key in [k for k in d if k not in ("pages", "scale")]:
-                del d[key]
+    leaves (``pages``, ``scale``) from every pool dict, in place."""
+    for d in _halves(caches):
+        for key in [k for k in d if k not in ("pages", "scale")]:
+            del d[key]
     return caches
 
 
@@ -272,12 +297,11 @@ class ContinuousBatchingEngine:
                  spec_ngram: Optional[int] = None, draft_model=None,
                  tp: Optional[int] = None, mesh=None,
                  comm_precision: Optional[str] = None, device=None):
-        if draft_model is not None:
-            _not_ported("draft-model speculation (draft_model=)")
         if ((tp is not None and tp != 1) or mesh is not None
                 or comm_precision is not None):
             _not_ported("tensor parallelism (tp=/mesh=/comm_precision=)")
-        self._spec = resolve_speculative(speculative, spec_k, spec_ngram)
+        self._spec = resolve_speculative(speculative, spec_k, spec_ngram,
+                                         draft_model)
         if self._spec is not None and do_sample:
             raise ValueError(
                 "speculative decoding is greedy-only (acceptance is exact "
@@ -321,9 +345,21 @@ class ContinuousBatchingEngine:
         # cache positions a verify block writes
         self._overshoot = (max(self.tick_tokens, self._spec.k + 1)
                            if self._spec is not None else self.tick_tokens)
-        self._proposer = (NGramProposer(self._spec.k, self._spec.ngram_max,
-                                        self._spec.ngram_min)
-                          if self._spec is not None else None)
+        self._proposer = None
+        if self._spec is not None and self._spec.kind == "draft":
+            draft = self._spec.draft_model
+            if draft.device != self.device:
+                raise ValueError(f"draft model lives on {draft.device}, "
+                                 f"engine device is {self.device}")
+            # an f32 draft cache whatever the target's, as paddle_tpu's
+            self._proposer = DraftModelProposer(
+                draft, self.slots, self.max_len, self._spec.k,
+                cache_dtype="float32")
+        elif self._spec is not None:
+            self._proposer = NGramProposer(self._spec.k,
+                                           self._spec.ngram_max,
+                                           self._spec.ngram_min)
+        self._draft = isinstance(self._proposer, DraftModelProposer)
         self.spec_ticks = 0           # verify forwards
         self.tokens_drafted = 0
         self.tokens_accepted = 0      # drafted tokens that matched
@@ -461,11 +497,12 @@ class ContinuousBatchingEngine:
                     [*self.model.parameters(), *self.model.buffers()]),
                 "kv_cache_bytes": _eff.tree_nbytes(self._caches)}
         if self.paged:
+            # per page of each pool leaf (a stacked leaf holds its
+            # layers' pages on axis 1), times the pages the view gathers
+            stk = _stacked(self._caches)
             geom["kv_view_bytes"] = sum(
-                leaf.nbytes // leaf.shape[0] * self.pages_per_slot
-                * self.slots
-                for kc, vc in self._caches for half in (kc, vc)
-                for leaf in half.values())
+                leaf.nbytes // leaf.shape[int(stk)] * self.pages_per_slot
+                * self.slots for leaf in cache_leaves(self._caches))
         self._tick_model_bytes = _eff.modeled_tick_bytes(
             "decode_paged" if self.paged else "decode", geom)
         self._verify_model_bytes = (_eff.modeled_tick_bytes("verify", geom)
@@ -853,22 +890,27 @@ class ContinuousBatchingEngine:
                 self._verify_forward(zeros, zeros, live,
                                      np.zeros((N, self._spec.k), np.int32),
                                      dlen)
+            if self._draft:
+                # the draft's admissions and one proposal, its cache
+                # zeroed after
+                self._proposer.warmup(job["buckets"])
+                self._programs.update(("draft_admit", b)
+                                      for b in job["buckets"])
+                self._programs.add(("draft", 0))
         finally:
+            leaves = cache_leaves(self._caches)
             if self.paged:
                 idx = torch.tensor(pages, dtype=torch.int64, device=dev)
-                for kc, vc in self._caches:
-                    for leaf in (*kc.values(), *vc.values()):
-                        leaf.index_fill_(0, idx, 0)
+                ax = int(_stacked(self._caches))
+                for leaf in leaves:
+                    leaf.index_fill_(ax, idx, 0)
                 self._block_tables[0] = 0
                 self._allocator.decref(pages)
                 if self._obs:
                     self._set_page_gauges()
             else:
-                for kc, vc in self._caches:
-                    for leaf in (kc, vc):
-                        for t in (leaf.values() if isinstance(leaf, dict)
-                                  else (leaf,)):
-                            t.zero_()
+                for t in leaves:
+                    t.zero_()
         with self._cv:
             self._warm_job = None
         job["done"].set()
@@ -899,11 +941,16 @@ class ContinuousBatchingEngine:
         raise ValueError(f"prompt length {P} exceeds largest bucket")
 
     def _slot_view(self, b: int):
-        """Per-layer batch-1 views of slot ``b``'s cache rows."""
+        """Batch-1 views of slot ``b``'s cache rows, in the caches' own
+        layout (the slot axis is 1 in a stacked leaf)."""
+        ax = int(_stacked(self._caches))
+
         def row(leaf):
             if isinstance(leaf, dict):
-                return {k: t[b:b + 1] for k, t in leaf.items()}
-            return leaf[b:b + 1]
+                return {k: t.narrow(ax, b, 1) for k, t in leaf.items()}
+            return leaf.narrow(ax, b, 1)
+        if ax:
+            return tuple(row(h) for h in self._caches)
         return [(row(kc), row(vc)) for kc, vc in self._caches]
 
     def _padded_ids(self, tokens):
@@ -926,15 +973,17 @@ class ContinuousBatchingEngine:
         else:
             # reset slot b's rows, prefill the bucketed prompt into them
             view = self._slot_view(b)
-            for kc, vc in view:
-                for leaf in (kc, vc):
-                    for t in (leaf.values() if isinstance(leaf, dict)
-                              else (leaf,)):
-                        t.zero_()
+            for t in cache_leaves(view):
+                t.zero_()
             bucket = self._bucket_for(P)
             logits, _ = self.model(self._padded_ids(req.prompt), view, 0)
             tok0 = self._first_token(logits[:, P - 1], req)
             self._programs.add(("admit", bucket))
+        if self._draft:
+            # the draft's row for this slot gets the WHOLE prompt (with a
+            # prefix hit the target prefilled only the suffix)
+            self._proposer.admit(b, req.prompt, self._bucket_for(P))
+            self._programs.add(("draft_admit", self._bucket_for(P)))
         slot = self._slots[b]
         slot.req = req
         slot.pos = P
@@ -973,10 +1022,11 @@ class ContinuousBatchingEngine:
 
     def _copy_page(self, src: int, dst: int):
         """Copy-on-write: duplicate physical page ``src`` into ``dst`` in
-        every layer's pool leaves (int8 scale planes included)."""
-        for kc, vc in self._caches:
-            for leaf in (*kc.values(), *vc.values()):
-                leaf[dst].copy_(leaf[src])
+        every layer's pool leaves (int8 scale planes included; axis 1 of a
+        stacked leaf)."""
+        ax = int(_stacked(self._caches))
+        for leaf in cache_leaves(self._caches):
+            leaf.select(ax, dst).copy_(leaf.select(ax, src))
 
     def _admit_paged(self, req: _Request, b: int) -> Optional[int]:
         """Paged admission: prefix-trie match, page allocation (evicting
@@ -1065,12 +1115,35 @@ class ContinuousBatchingEngine:
         else:
             self._tick_decode()
 
+    def _prev_token(self, s: _Slot) -> int:
+        """The true token at ``s.pos - 1`` (the draft sync block's first
+        element); ``pos >= prompt length >= 1``, so it exists."""
+        P = s.req.prompt.shape[0]
+        j = s.pos - 1
+        return int(s.req.prompt[j]) if j < P else s.emitted[j - P]
+
     def _propose_all(self):
-        """(props [N, k] int32, dlen [N] int32): host n-gram drafts for
-        every busy slot."""
+        """(props [N, k] int32, dlen [N] int32) for every busy slot: one
+        draft-model proposal for all slots (each busy slot drafts k), or
+        host n-gram drafts."""
         N, K = self.slots, self._spec.k
         props = np.zeros((N, K), np.int32)
         dlen = np.zeros(N, np.int32)
+        if self._draft:
+            prev = np.zeros(N, np.int32)
+            tok = np.zeros(N, np.int32)
+            pos = np.zeros(N, np.int32)
+            for i, s in enumerate(self._slots):
+                if s.free:
+                    continue
+                prev[i] = self._prev_token(s)
+                tok[i] = s.tok
+                pos[i] = s.pos
+                dlen[i] = K
+            if dlen.any():
+                props = self._proposer.propose(prev, tok, pos)
+                self._programs.add(("draft", 0))
+            return props, dlen
         for i, s in enumerate(self._slots):
             if s.free:
                 continue

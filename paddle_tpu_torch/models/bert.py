@@ -20,8 +20,9 @@ head's losses run the fused cross-entropy kernels (B2). The GEMMs, the
 masked attention, the dropout branch and the MLM decoder's matmul are
 plain PyTorch, as they are XLA code there.
 
-Not ported: ``scan_layers`` (ROADMAP.md). ERNIE is BERT with a relu FFN
-(``ernie_3_*``).
+``scan_layers`` stacks the encoder layers into one ``ScannedStack``
+(``models/scanned.py``; dropout must be 0, as in paddle_tpu). ERNIE is
+BERT with a relu FFN (``ernie_3_*``).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from torch import nn
 from ..device import resolve_device
 from ..nn import Dropout, Embedding, LayerNorm, Linear, Tanh
 from ..nn import functional as F
+from .scanned import ScannedStack, stacked_init_kinds
 
 __all__ = ["BertConfig", "BertModel", "BertForSequenceClassification",
            "BertForMaskedLM", "ErnieModel", "bert_tiny", "bert_base",
@@ -81,7 +83,8 @@ def _materialize(model: nn.Module, cfg: BertConfig, device, seed: int):
     ``device`` and draw them there with one generator of that device
     seeded by ``seed``, in parameter order: 2-D weights from ``N(0,
     initializer_range)``, LayerNorm weights ones, every other vector (the
-    biases, ``decoder_bias``) zeros, as paddle_tpu initialises them. CPU
+    biases, ``decoder_bias``) zeros, as paddle_tpu initialises them (a
+    ``ScannedStack``'s leaves by its rule, the same one stacked). CPU
     and CUDA generators draw different numbers: to compare a CPU and a card
     model, copy the weights (``convert.load_paddle_tpu_params``). The
     model is left in eval mode. ``device="meta"`` leaves it unallocated
@@ -90,14 +93,16 @@ def _materialize(model: nn.Module, cfg: BertConfig, device, seed: int):
         return
     dev = resolve_device(device)
     model.to_empty(device=dev)
-    ones = {id(m.weight) for m in model.modules()
-            if isinstance(m, LayerNorm)}
+    kinds = stacked_init_kinds(model)
+    kinds.update({id(m.weight): "ones" for m in model.modules()
+                  if isinstance(m, LayerNorm)})
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     with torch.no_grad():
         for p in model.parameters():
-            if p.ndim == 2:
+            kind = kinds.get(id(p), "normal" if p.ndim == 2 else "zeros")
+            if kind == "normal":
                 p.normal_(0.0, cfg.initializer_range, generator=gen)
-            elif id(p) in ones:
+            elif kind == "ones":
                 p.fill_(1.0)
             else:
                 p.zero_()
@@ -200,17 +205,22 @@ class BertModel(nn.Module):
 
     def __init__(self, cfg: BertConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.scan_layers:
-            raise NotImplementedError(
-                "BertConfig.scan_layers is not ported yet — see ROADMAP.md")
         self.cfg = cfg
+        if cfg.scan_layers:
+            # guard before anything is built
+            ScannedStack.reject_dropout(cfg.dropout)
         with torch.device("meta"):
             self.embeddings = BertEmbeddings(cfg)
-            self.layers = []
-            for i in range(cfg.num_layers):
-                layer = BertLayer(cfg)
-                self.add_module(f"layer_{i}", layer)
-                self.layers.append(layer)
+            if cfg.scan_layers:
+                self.layers = ScannedStack(lambda: BertLayer(cfg),
+                                           cfg.num_layers,
+                                           cfg.initializer_range)
+            else:
+                self.layers = []
+                for i in range(cfg.num_layers):
+                    layer = BertLayer(cfg)
+                    self.add_module(f"layer_{i}", layer)
+                    self.layers.append(layer)
             self.pooler = BertPooler(cfg)
         _materialize(self, cfg, device, seed)
 
@@ -225,6 +235,9 @@ class BertModel(nn.Module):
             m = attention_mask.to(torch.float32)
             mask = ((m - 1.0) * 1e30).reshape(m.shape[0], 1, 1, m.shape[1])
         x = self.embeddings(ids, token_type_ids)
+        if self.cfg.scan_layers:
+            x = self.layers(x, mask)
+            return x, self.pooler(x)
         for layer in self.layers:
             x = layer(x, mask)
         return x, self.pooler(x)

@@ -30,11 +30,30 @@ __all__ = ["generate", "new_kv_caches", "new_paged_kv_caches", "prng_key",
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def cache_leaves(tree):
+    """The tensors of a cache tree (lists / tuples / dicts of tensors, in
+    either layout), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in cache_leaves(v)]
+    return [t for v in tree for t in cache_leaves(v)]
+
+
+def _stack(trees):
+    """One tree of stacked leaves from per-layer trees (tensors or dicts
+    of tensors): the layout of a ``scan_layers`` model's caches."""
+    if isinstance(trees[0], dict):
+        return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
 def new_kv_caches(num_layers, batch, max_len, kv_heads, head_dim, dtype,
-                  device):
+                  scan_layers=False, device=None):
     """Per-layer [(k, v), ...] caches [batch, max_len, kv_heads, head_dim]
-    of zeros on ``device``; dtype "int8" gives the quantised dict form
-    (``quantized_kv_cache``)."""
+    of zeros on ``device``, or, ``scan_layers``, one stacked (k_stack,
+    v_stack) pair whose leaves carry a leading layer axis; dtype "int8"
+    gives the quantised dict form (``quantized_kv_cache``)."""
     from ..nn.functional.flash_attention import quantized_kv_cache
     if dtype == "int8":
         def one():
@@ -48,21 +67,31 @@ def new_kv_caches(num_layers, batch, max_len, kv_heads, head_dim, dtype,
         def one():
             return torch.zeros((batch, max_len, kv_heads, head_dim),
                                dtype=_DTYPES[str(dtype)], device=device)
+    if scan_layers:
+        return (_stack([one() for _ in range(num_layers)]),
+                _stack([one() for _ in range(num_layers)]))
     return [(one(), one()) for _ in range(num_layers)]
 
 
 def new_paged_kv_caches(num_layers, num_pages, page_size, kv_heads,
-                        head_dim, dtype, device):
+                        head_dim, dtype, scan_layers=False, device=None):
     """Per-layer [(k_pool, v_pool), ...] page pools for the paged serving
     engine (``paged_kv_cache`` dicts [num_pages, page_size, kv_heads,
     head_dim] of zeros on ``device``; dtype "int8" gives the quantised
-    pool). A physical page id names that page in every layer's pool, so
-    one block table, attached per call by the engine, indexes them all."""
+    pool), or, ``scan_layers``, one stacked (k_stack, v_stack) pair of
+    pool dicts [num_layers, num_pages, ...]. A physical page id names that
+    page in every layer's pool, so one block table, attached per call by
+    the engine, indexes them all."""
     from ..nn.functional.flash_attention import paged_kv_cache
     if dtype != "int8" and str(dtype) not in _DTYPES:
         raise ValueError(f"cache dtype {dtype!r}: one of "
                          f"{sorted(_DTYPES) + ['int8']}")
     dt = "int8" if dtype == "int8" else _DTYPES[str(dtype)]
+    if scan_layers:
+        return tuple(_stack([paged_kv_cache(num_pages, page_size, kv_heads,
+                                            head_dim, dt, device)
+                             for _ in range(num_layers)])
+                     for _ in range(2))
     return [(paged_kv_cache(num_pages, page_size, kv_heads, head_dim, dt,
                             device),
              paged_kv_cache(num_pages, page_size, kv_heads, head_dim, dt,

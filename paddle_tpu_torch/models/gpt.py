@@ -13,12 +13,18 @@ evaluation) or, when the mesh has an ``sp`` axis above 1, on
 ``ring_attention`` (the blockwise kernels, B5), ``loss_fn`` /
 ``make_loss_fn`` on the fused cross-entropy kernels, and ``train()`` /
 ``bfloat16()`` (torch's own, which cast every float parameter as
-paddle_tpu's ``Layer.bfloat16()`` does). Not yet: ``scan_layers``,
-``use_moe``, ``recompute``, ``fused_loss_chunk`` and the pipeline class
-(ROADMAP.md).
+paddle_tpu's ``Layer.bfloat16()`` does). The training memory features:
+``recompute`` / ``recompute_policy`` (each block through
+``distributed.recompute``), ``scan_layers`` (the blocks as one
+``ScannedStack``, ``models/scanned.py``; its caches stacked) and
+``fused_loss_chunk`` (a training-mode forward returns ``(hidden,
+lm_weight)`` and ``fused_loss_fn`` streams the LM head through
+``F.fused_linear_cross_entropy``). Not yet: ``use_moe`` and the pipeline
+class (ROADMAP.md).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -26,11 +32,12 @@ from torch import nn
 
 from ..device import resolve_device
 from ..distributed.mesh import mesh_axis_size
+from ..distributed.recompute import recompute
 from ..distributed.sequence_parallel import ring_attention
 from ..nn import Dropout, Embedding, LayerNorm, Linear
 from ..nn import functional as F
-from ..nn.layer.common import _no_default_init
 from .generation import new_kv_caches, new_paged_kv_caches
+from .scanned import ScannedStack, stacked_init_kinds
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
            "gpt_125m", "gpt_1p3b", "gpt_6p7b"]
@@ -75,10 +82,9 @@ def gpt_6p7b(**kw):
 
 
 def _check_supported(cfg: GPTConfig):
-    for name in ("scan_layers", "use_moe", "recompute", "fused_loss_chunk"):
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"GPTConfig.{name} is not ported yet — see ROADMAP.md")
+    if cfg.use_moe:
+        raise NotImplementedError(
+            "GPTConfig.use_moe is not ported yet — see ROADMAP.md")
 
 
 class GPTAttention(nn.Module):
@@ -146,6 +152,17 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
+class GPTScannedBlocks(ScannedStack):
+    """The GPT block stack as one ``ScannedStack`` (``cfg.scan_layers``);
+    dropout is rejected, as in paddle_tpu."""
+
+    def __init__(self, cfg: GPTConfig):
+        ScannedStack.reject_dropout(cfg.dropout)
+        super().__init__(lambda: GPTBlock(cfg), cfg.num_layers,
+                         cfg.initializer_range, recompute=cfg.recompute,
+                         recompute_policy=cfg.recompute_policy)
+
+
 class GPTEmbeddings(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -180,24 +197,36 @@ class GPTModel(nn.Module):
         _check_supported(cfg)
         self.cfg = cfg
         self.embeddings = GPTEmbeddings(cfg)
-        self.blocks = []
-        for i in range(cfg.num_layers):
-            blk = GPTBlock(cfg)
-            self.add_module(f"block_{i}", blk)
-            self.blocks.append(blk)
+        if cfg.scan_layers:
+            self.blocks = GPTScannedBlocks(cfg)
+        else:
+            self.blocks = []
+            for i in range(cfg.num_layers):
+                blk = GPTBlock(cfg)
+                self.add_module(f"block_{i}", blk)
+                self.blocks.append(blk)
         self.ln_f = LayerNorm(cfg.hidden_size)
 
     def forward(self, ids, caches=None, pos=None):
         if caches is not None:
             x = self.embeddings(ids, pos)
+            if self.cfg.scan_layers:
+                x, new_caches = self.blocks.forward_cached(x, caches, pos)
+                return self.ln_f(x), new_caches
             new_caches = []
             for blk, c in zip(self.blocks, caches):
                 x, c = blk(x, c, pos)
                 new_caches.append(c)
             return self.ln_f(x), new_caches
         x = self.embeddings(ids)
-        for blk in self.blocks:
-            x = blk(x)
+        if self.cfg.scan_layers:
+            return self.ln_f(self.blocks(x))
+        if self.cfg.recompute and self.training:
+            for blk in self.blocks:
+                x = recompute(blk, x, policy=self.cfg.recompute_policy)
+        else:
+            for blk in self.blocks:
+                x = blk(x)
         return self.ln_f(x)
 
 
@@ -206,27 +235,41 @@ class GPTForCausalLM(nn.Module):
     ``lm_head`` when ``cfg.tie_embeddings`` is False).
 
     ``device``: the card when omitted (raises without one); pass
-    ``device="cpu"`` for the CPU. Weights are drawn from ``N(0,
-    initializer_range)`` with a CPU ``torch.Generator`` seeded by ``seed``
-    and then moved, so one seed gives the same weights on every device.
-    The model is built in eval mode.
+    ``device="cpu"`` for the CPU. The model is built on the meta device
+    and allocated on ``device``; then each parameter is drawn on the host
+    by one CPU ``torch.Generator`` seeded by ``seed``, in name order, and
+    copied over, so one seed gives the same weights on every device and
+    the host holds one parameter at a time. The 2-D ``*.weight`` leaves
+    (and a ``ScannedStack``'s leaves of per-layer rank >= 2) are drawn
+    from ``N(0, initializer_range)``, the LayerNorm weights are ones and
+    the biases zeros. The model is built in eval mode.
     """
 
     def __init__(self, cfg: GPTConfig, device=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        with _no_default_init():          # the draw below is the only one
+        with torch.device("meta"):        # the draw below is the only one
             self.gpt = GPTModel(cfg)
             self.lm_head = (None if cfg.tie_embeddings else
                             Linear(cfg.hidden_size, cfg.vocab_size,
                                    bias_attr=False))
+        self.to_empty(device=dev)
+        kinds = stacked_init_kinds(self)
         gen = torch.Generator().manual_seed(int(seed))
         with torch.no_grad():
             for name, p in self.named_parameters():
-                if name.endswith(".weight") and p.ndim == 2:
-                    p.normal_(0.0, cfg.initializer_range, generator=gen)
-        self.to(dev)
+                kind = kinds.get(id(p))
+                if kind is None:
+                    kind = ("normal" if p.ndim == 2 else "ones")  \
+                        if name.endswith(".weight") else "zeros"
+                if kind == "normal":
+                    host = torch.empty(p.shape, dtype=torch.float32)
+                    p.copy_(host.normal_(0.0, cfg.initializer_range,
+                                         generator=gen))
+                    del host
+                else:
+                    p.fill_(1.0 if kind == "ones" else 0.0)
         self.eval()
 
     @property
@@ -234,13 +277,25 @@ class GPTForCausalLM(nn.Module):
         return self.gpt.ln_f.weight.device
 
     def forward(self, ids, caches=None, pos=None):
-        """``forward(ids)`` -> logits [B, S, V] (no-cache);
-        ``forward(ids, caches, pos)`` -> (logits, caches), the caches
-        written in place (see ``cached_attention``)."""
+        """``forward(ids)`` -> logits [B, S, V] (no-cache), or, in
+        training mode with ``fused_loss_chunk``, ``(hidden [B, S, H],
+        lm_weight)`` for ``fused_loss_fn`` (the logits never exist
+        whole); ``forward(ids, caches, pos)`` -> (logits, caches), the
+        caches written in place (see ``cached_attention``)."""
         if caches is not None:
             x, caches = self.gpt(ids, caches, pos)
             return self._logits(x), caches
-        return self._logits(self.gpt(ids))
+        x = self.gpt(ids)
+        if self.cfg.fused_loss_chunk and self.training:
+            return x, self._lm_weight()
+        return self._logits(x)
+
+    def _lm_weight(self):
+        """The LM head's weight: the tied ``[V, H]`` embedding, or the
+        untied head's ``[H, V]``."""
+        if self.lm_head is None:
+            return self.gpt.embeddings.word_embeddings.weight
+        return self.lm_head.weight
 
     def _logits(self, x):
         if self.lm_head is None:
@@ -261,29 +316,52 @@ class GPTForCausalLM(nn.Module):
                             dim=1)
         return F.cross_entropy(logits.reshape(-1, V), shifted.reshape(-1))
 
+    @staticmethod
+    def fused_loss_fn(outputs, labels, chunk_size=512):
+        """``loss_fn``'s counterpart for ``fused_loss_chunk`` models:
+        ``outputs`` is ``(hidden, lm_weight)`` from a training-mode
+        forward, and the LM head streams through
+        ``F.fused_linear_cross_entropy`` in chunks of ``chunk_size``
+        tokens. The shift is ``loss_fn``'s: the last position's label is
+        the ignore index, so ``hidden`` is not copied. Plain logits (an
+        eval-mode forward) fall through to ``loss_fn``."""
+        if not isinstance(outputs, tuple):
+            return GPTForCausalLM.loss_fn(outputs, labels)
+        hidden, w = outputs
+        B = labels.shape[0]
+        shifted = torch.cat([labels[:, 1:], labels.new_full((B, 1), -100)],
+                            dim=1)
+        return F.fused_linear_cross_entropy(hidden, w, shifted,
+                                            chunk_size=chunk_size)
+
     def make_loss_fn(self):
-        """The loss this config trains with. ``fused_loss_chunk`` is not
-        ported (``_check_supported`` raises), so it is ``loss_fn``."""
+        """The loss this config trains with: ``fused_loss_fn`` bound to
+        ``cfg.fused_loss_chunk`` when it is set, else ``loss_fn``."""
+        if self.cfg.fused_loss_chunk:
+            return functools.partial(self.fused_loss_fn,
+                                     chunk_size=self.cfg.fused_loss_chunk)
         return self.loss_fn
 
     def new_cache(self, batch_size: int, max_len: int, dtype="bfloat16"):
         """Per-layer (k, v) caches [B, max_len, nh, hd] on the model's
-        device (dtype "int8" -> the quantised dict form)."""
+        device, or one stacked (k_stack, v_stack) pair for a
+        ``scan_layers`` model (dtype "int8" -> the quantised dict form)."""
         cfg = self.cfg
         return new_kv_caches(cfg.num_layers, batch_size, max_len,
                              cfg.num_heads, cfg.hidden_size // cfg.num_heads,
-                             dtype, self.device)
+                             dtype, cfg.scan_layers, self.device)
 
     def new_paged_cache(self, num_pages: int, page_size: int,
                         dtype="bfloat16"):
         """Per-layer (k, v) page pools [num_pages, page_size, nh, hd] for
-        the paged serving engine on the model's device; block tables are
-        engine state, not part of them."""
+        the paged serving engine on the model's device (one stacked pair
+        for a ``scan_layers`` model); block tables are engine state, not
+        part of them."""
         cfg = self.cfg
         return new_paged_kv_caches(cfg.num_layers, num_pages, page_size,
                                    cfg.num_heads,
                                    cfg.hidden_size // cfg.num_heads, dtype,
-                                   self.device)
+                                   cfg.scan_layers, self.device)
 
     def generate(self, input_ids, max_new_tokens=32, **kw):
         from .generation import generate

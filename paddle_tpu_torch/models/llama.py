@@ -16,8 +16,12 @@ no-cache forward repeats k and v to the query heads and runs the flash
 kernels (B1) or, when the mesh has an ``sp`` axis above 1,
 ``ring_attention`` (B5). RoPE uses the interleaved-pairs convention in f32.
 
-Not yet: ``scan_layers``, ``recompute``, ``fused_loss_chunk`` and the
-pipeline class ``LlamaPipelineForCausalLM`` (ROADMAP.md).
+The training memory features are GPT's: ``recompute`` /
+``recompute_policy``, ``scan_layers`` (``LlamaScannedBlocks``, stacked
+caches) and ``fused_loss_chunk`` (a training-mode forward returns
+``(hidden, lm_head.weight)``, the ``[H, V]`` weight, for
+``fused_loss_fn``). Not yet: the pipeline class
+``LlamaPipelineForCausalLM`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -29,11 +33,13 @@ from torch import nn
 
 from ..device import resolve_device
 from ..distributed.mesh import mesh_axis_size
+from ..distributed.recompute import recompute
 from ..distributed.sequence_parallel import ring_attention
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
 from .generation import new_kv_caches, new_paged_kv_caches
 from .gpt import GPTForCausalLM
+from .scanned import ScannedStack, stacked_init_kinds
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
            "llama_7b", "llama_13b"]
@@ -75,13 +81,6 @@ def llama_7b(**kw):
 def llama_13b(**kw):
     return LlamaConfig(hidden_size=5120, intermediate_size=13824,
                        num_layers=40, num_heads=40, **kw)
-
-
-def _check_supported(cfg: LlamaConfig):
-    for name in ("scan_layers", "recompute", "fused_loss_chunk"):
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"LlamaConfig.{name} is not ported yet — see ROADMAP.md")
 
 
 def _rope(q, k, theta: float, offset=None):
@@ -192,19 +191,31 @@ class LlamaBlock(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
+class LlamaScannedBlocks(ScannedStack):
+    """The Llama block stack as one ``ScannedStack``
+    (``cfg.scan_layers``)."""
+
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__(lambda: LlamaBlock(cfg), cfg.num_layers,
+                         cfg.initializer_range, recompute=cfg.recompute,
+                         recompute_policy=cfg.recompute_policy)
+
+
 class LlamaModel(nn.Module):
     """Decoder stack without head."""
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.blocks = []
-        for i in range(cfg.num_layers):
-            blk = LlamaBlock(cfg)
-            self.add_module(f"block_{i}", blk)
-            self.blocks.append(blk)
+        if cfg.scan_layers:
+            self.blocks = LlamaScannedBlocks(cfg)
+        else:
+            self.blocks = []
+            for i in range(cfg.num_layers):
+                blk = LlamaBlock(cfg)
+                self.add_module(f"block_{i}", blk)
+                self.blocks.append(blk)
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps)
 
     def forward(self, ids, caches=None, pos=None):
@@ -214,13 +225,22 @@ class LlamaModel(nn.Module):
                 f"{self.cfg.max_seq_len}")
         x = self.embed_tokens(ids)
         if caches is not None:
+            if self.cfg.scan_layers:
+                x, new_caches = self.blocks.forward_cached(x, caches, pos)
+                return self.norm(x), new_caches
             new_caches = []
             for blk, c in zip(self.blocks, caches):
                 x, c = blk(x, c, pos)
                 new_caches.append(c)
             return self.norm(x), new_caches
-        for blk in self.blocks:
-            x = blk(x)
+        if self.cfg.scan_layers:
+            return self.norm(self.blocks(x))
+        if self.cfg.recompute and self.training:
+            for blk in self.blocks:
+                x = recompute(blk, x, policy=self.cfg.recompute_policy)
+        else:
+            for blk in self.blocks:
+                x = blk(x)
         return self.norm(x)
 
 
@@ -232,7 +252,8 @@ class LlamaForCausalLM(nn.Module):
     device and drawn there, one after another, by a ``torch.Generator`` of
     that device seeded by ``seed`` (a 13 B model never passes through host
     memory): 2-D weights from ``N(0, initializer_range)``, the RMSNorm
-    weights ones. CPU and CUDA generators draw different numbers, so one
+    weights ones, a ``ScannedStack``'s leaves by its rule (per-layer rank
+    >= 2 drawn, the stacked RMSNorm weights ones). CPU and CUDA generators draw different numbers, so one
     seed gives different weights on the two device types; to compare
     them, copy one model's weights into the other
     (``convert.load_paddle_tpu_params``). The model is built in eval
@@ -248,13 +269,15 @@ class LlamaForCausalLM(nn.Module):
             self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
                                   bias_attr=False)
         self.to_empty(device=dev)
+        kinds = stacked_init_kinds(self)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         with torch.no_grad():
             for p in self.parameters():
-                if p.ndim == 2:
+                kind = kinds.get(id(p), "normal" if p.ndim == 2 else "ones")
+                if kind == "normal":
                     p.normal_(0.0, cfg.initializer_range, generator=gen)
                 else:
-                    p.fill_(1.0)                   # the RMSNorm weights
+                    p.fill_(1.0 if kind == "ones" else 0.0)
         self.eval()
 
     @property
@@ -262,29 +285,32 @@ class LlamaForCausalLM(nn.Module):
         return self.llama.norm.weight.device
 
     def forward(self, ids, caches=None, pos=None):
-        """``forward(ids)`` -> logits [B, S, V] (no-cache);
-        ``forward(ids, caches, pos)`` -> (logits, caches), the caches
-        written in place (see ``cached_attention``)."""
+        """``forward(ids)`` -> logits [B, S, V] (no-cache), or, in
+        training mode with ``fused_loss_chunk``, ``(hidden, lm_head.weight
+        [H, V])`` for ``fused_loss_fn``; ``forward(ids, caches, pos)`` ->
+        (logits, caches), the caches written in place (see
+        ``cached_attention``)."""
         if caches is not None:
             x, caches = self.llama(ids, caches, pos)
             return self.lm_head(x), caches
-        return self.lm_head(self.llama(ids))
+        x = self.llama(ids)
+        if self.cfg.fused_loss_chunk and self.training:
+            return x, self.lm_head.weight
+        return self.lm_head(x)
 
     # the next-token shift and the fused cross-entropy kernels, as GPT's
     loss_fn = staticmethod(GPTForCausalLM.loss_fn)
-
-    def make_loss_fn(self):
-        """The loss this config trains with. ``fused_loss_chunk`` is not
-        ported (``_check_supported`` raises), so it is ``loss_fn``."""
-        return self.loss_fn
+    fused_loss_fn = staticmethod(GPTForCausalLM.fused_loss_fn)
+    make_loss_fn = GPTForCausalLM.make_loss_fn
 
     def new_cache(self, batch_size: int, max_len: int, dtype="bfloat16"):
         """Per-layer (k, v) caches [B, max_len, n_kv_heads, hd] on the
-        model's device (dtype "int8" -> the quantised dict form)."""
+        model's device, stacked for ``scan_layers`` (dtype "int8" -> the
+        quantised dict form)."""
         cfg = self.cfg
         return new_kv_caches(cfg.num_layers, batch_size, max_len,
                              cfg.kv_heads, cfg.hidden_size // cfg.num_heads,
-                             dtype, self.device)
+                             dtype, cfg.scan_layers, self.device)
 
     def new_paged_cache(self, num_pages: int, page_size: int,
                         dtype="bfloat16"):
@@ -294,7 +320,7 @@ class LlamaForCausalLM(nn.Module):
         return new_paged_kv_caches(cfg.num_layers, num_pages, page_size,
                                    cfg.kv_heads,
                                    cfg.hidden_size // cfg.num_heads, dtype,
-                                   self.device)
+                                   cfg.scan_layers, self.device)
 
     def generate(self, input_ids, max_new_tokens=32, **kw):
         from .generation import generate

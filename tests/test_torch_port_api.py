@@ -18,7 +18,12 @@ import torch
 
 from paddle_tpu import jit as jjit
 from paddle_tpu.inference import predictor as jpred
+from paddle_tpu import distributed as jdist
 from paddle_tpu.inference import router as jrouter
+from paddle_tpu.inference import speculative as jspec
+from paddle_tpu.models import scanned as jscanned
+from paddle_tpu.models import gpt as jgpt
+from paddle_tpu.models import llama as jllama
 from paddle_tpu.inference import serve as jserve
 from paddle_tpu.inference.engine import \
     ContinuousBatchingEngine as JaxEngine
@@ -34,7 +39,12 @@ from paddle_tpu.nn.functional import activation as jact
 from paddle_tpu.nn.functional import common as jcommon
 from paddle_tpu_torch import jit as tjit
 from paddle_tpu_torch.inference import predictor as tpred
+from paddle_tpu_torch import distributed as tdist
 from paddle_tpu_torch.inference import router as trouter
+from paddle_tpu_torch.inference import speculative as tspec
+from paddle_tpu_torch.models import scanned as tscanned
+from paddle_tpu_torch.models import gpt as tgpt
+from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.inference import serve as tserve
 from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
 from paddle_tpu_torch.models import generation as tgen
@@ -103,7 +113,20 @@ _NAMES = [(tF, jF, n) for n in ("layer_norm", "cross_entropy")] + [
         "Router.replicas", "Router.stats", "Router.render_metrics",
         "ReplicaSpec.__init__", "ReplicaSpec.argv", "Replica.__init__",
         "RespawnGovernor.__init__", "RespawnGovernor.note_death",
-        "single_device_child_env", "main")]
+        "single_device_child_env", "main")] + [
+    # draft-model speculation and the training memory features
+    (tspec, jspec, n) for n in (
+        "resolve_speculative", "DraftModelProposer.__init__",
+        "DraftModelProposer.admit", "DraftModelProposer.propose")] + [
+    (tdist, jdist, n) for n in ("recompute", "recompute_sequential")] + [
+    (tscanned, jscanned, n) for n in (
+        "ScannedStack.__init__", "ScannedStack.load_from_blocks",
+        "ScannedStack.forward", "ScannedStack.forward_cached",
+        "ScannedStack.reject_dropout")] + [
+    (tF, jF, "fused_linear_cross_entropy"),
+    (tgpt, jgpt, "GPTForCausalLM.fused_loss_fn"),
+    (tllama, jllama, "LlamaForCausalLM.fused_loss_fn"),
+    (tgen, jgen, "new_kv_caches"), (tgen, jgen, "new_paged_kv_caches")]
 
 
 def test_capture_takes_a_torch_profile_flag():

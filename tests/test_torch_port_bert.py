@@ -88,8 +88,19 @@ def test_gpt_6p7b_fields_match_reference():
 
 
 def test_scan_layers_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbert.BertModel(tbert.bert_tiny(scan_layers=True), device="cpu")
+    """``scan_layers`` is ported: at dropout 0 the encoder builds as
+    paddle_tpu's, with its stacked ``layers.*__*`` names and shapes; at
+    dropout 0.1 both raise NotImplementedError."""
+    paddle.seed(0)
+    params, _ = raw_state(jbert.BertModel(jbert.bert_tiny(scan_layers=True)))
+    tm = tbert.BertModel(tbert.bert_tiny(scan_layers=True), device="cpu")
+    assert {n: tuple(p.shape) for n, p in tm.named_parameters()} == \
+        {n: tuple(a.shape) for n, a in params.items()}
+    for build, mod in ((lambda c: jbert.BertModel(c), jbert),
+                       (lambda c: tbert.BertModel(c, device="cpu"), tbert)):
+        with pytest.raises(NotImplementedError, match="dropout"):
+            build(dataclasses.replace(mod.bert_tiny(scan_layers=True),
+                                      dropout=0.1))
 
 
 def test_parameter_names_match_reference():

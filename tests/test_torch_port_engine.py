@@ -163,8 +163,29 @@ def test_overload_and_cancel(models):
     ({"tp": 2}, "tensor parallelism"),
     ({"comm_precision": "int8"}, "tensor parallelism")])
 def test_unported_options_raise(models, kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        ContinuousBatchingEngine(models[1], device="cpu", **kw)
+    """Tensor parallelism is not ported and raises naming it. Draft-model
+    speculation is ported and follows paddle_tpu's engine:
+    ``speculative="draft"`` without ``draft_model`` raises ValueError, and
+    a ``draft_model`` without ``speculative="draft"`` is ignored (a plain
+    engine)."""
+    if what != "draft":
+        with pytest.raises(NotImplementedError, match=what):
+            ContinuousBatchingEngine(models[1], device="cpu", **kw)
+        return
+    if "speculative" in kw:
+        for build in (lambda: JaxEngine(models[0], **kw),
+                      lambda: ContinuousBatchingEngine(models[1],
+                                                       device="cpu", **kw)):
+            with pytest.raises(ValueError, match="draft_model"):
+                build()
+        return
+    for eng in (JaxEngine(models[0], slots=2, **ENGINE_KW, **kw),
+                ContinuousBatchingEngine(models[1], slots=2, device="cpu",
+                                         **ENGINE_KW, **kw)):
+        try:
+            assert eng.stats()["speculative"] is None
+        finally:
+            eng.stop()
 
 
 def test_default_device_is_the_card(models):

@@ -116,8 +116,14 @@ def test_param_names_and_layouts_are_paddles(models):
 @pytest.mark.parametrize("field", ["scan_layers", "recompute",
                                    "fused_loss_chunk"])
 def test_unported_config_raises(field):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaForCausalLM(llama_tiny(**{field: 1}), device="cpu")
+    """These fields are ported: the model builds, as paddle_tpu's does,
+    with paddle_tpu's parameter names and shapes."""
+    paddle.seed(0)
+    params, _ = raw_state(jllama.LlamaForCausalLM(
+        jllama.llama_tiny(**{field: 1})))
+    tm = LlamaForCausalLM(llama_tiny(**{field: 1}), device="cpu")
+    assert {n: tuple(p.shape) for n, p in tm.named_parameters()} == \
+        {n: tuple(a.shape) for n, a in params.items()}
 
 
 def test_default_device_is_the_card():

@@ -9,8 +9,9 @@
   every request (requests are served one at a time, so both engines see
   the same tick composition).
 - Greedy only: ``do_sample`` with ``speculative=`` raises ValueError, as
-  paddle_tpu's engine does; the draft-model proposer is not ported and
-  ``speculative="draft"`` raises.
+  paddle_tpu's engine does; so does ``speculative="draft"`` without a
+  ``draft_model`` (the draft-model proposer's tests:
+  tests/test_torch_port_draft.py).
 """
 import json
 import time
@@ -77,7 +78,7 @@ def test_resolve_speculative_knobs(monkeypatch):
     monkeypatch.setenv("PADDLE_TPU_SERVE_SPEC", "ngram")
     monkeypatch.setenv("PADDLE_TPU_SERVE_SPEC_K", "3")
     assert resolve_speculative(None).k == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="draft_model"):
         resolve_speculative("draft")
     with pytest.raises(ValueError):
         resolve_speculative("beam")
@@ -212,7 +213,7 @@ def test_spec_healthz_and_generate_fields(models):
 @pytest.mark.parametrize("kw,exc,match", [
     ({"do_sample": True}, ValueError, "greedy-only"),
     ({"do_sample": True, "paged": True}, ValueError, "greedy-only"),
-    ({"speculative": "draft"}, NotImplementedError, "draft"),
+    ({"speculative": "draft"}, ValueError, "draft_model"),
     ({"speculative": "beam"}, ValueError, "beam")])
 def test_spec_options_raise(models, kw, exc, match):
     args = dict(ENGINE_KW)
