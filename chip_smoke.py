@@ -396,10 +396,12 @@ def card_line():
     return out[0].strip()
 
 
-def timed(torch, fn, flush, iters=30, warmup=3):
+def timed(torch, fn, flush, iters=30, warmup=3, clean=False):
     """Median ms of ``fn`` on the card: the launches queue up behind a
     sleep kernel so host enqueue gaps stay outside the events, and the L2
-    is flushed (a 128 MB write) before each timed launch."""
+    is flushed (a 128 MB write) before each timed launch. ``clean`` reads
+    the 128 MB instead, so the L2 holds no dirty lines that the timed
+    launch has to write back."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -407,7 +409,10 @@ def timed(torch, fn, flush, iters=30, warmup=3):
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     torch.cuda._sleep(int(3e8))
     for s, e in ev:
-        flush.zero_()
+        if clean:
+            flush.amax()
+        else:
+            flush.zero_()
         s.record()
         fn()
         e.record()
@@ -1655,12 +1660,13 @@ def check_flash_block(torch, fb, flush):
     return errs, rows
 
 
-def ce_cost(N, V, elem):
-    """(fwd bytes, fwd ops, bwd bytes, bwd ops): logits read once (and
-    dlogits written once backward), the [N] vectors once; 4 f32
-    operations per logit forward (max, subtract, exp, add), 5 backward."""
+def ce_cost(N, V, elem, out_elem=None):
+    """(fwd bytes, fwd ops, bwd bytes, bwd ops): logits of ``elem`` bytes
+    read once (and dlogits of ``out_elem``, default ``elem``, written once
+    backward), the [N] vectors once; 4 f32 operations per logit forward
+    (max, subtract, exp, add), 5 backward."""
     fwd = N * V * elem + N * 4 + 2 * N * 4
-    bwd = 2 * N * V * elem + 3 * N * 4
+    bwd = N * V * (elem + (out_elem or elem)) + 3 * N * 4
     return fwd, 4 * N * V, bwd, 5 * N * V
 
 
@@ -1681,61 +1687,82 @@ def ce_labels(torch, N, V, gen, vv=None, ignore_frac=0.0):
     return lib_lab.clamp(0, V - 1).to(torch.int32), g, lib_lab
 
 
+def dt_label(torch, dt):
+    return "bf16" if dt == torch.bfloat16 else "f32"
+
+
 def check_ce(torch, ce, flush, V=50304, cases=None,
              timing=("bfloat16", "float32"), timing_n=8192, ignore_frac=0.0):
     """Phase 3, B2: kernel vs plain at the training slice's shapes (the
     port runs all B*S = 8192 rows; 8184 = 8 x 1023 is the sliced count),
-    or at ``V`` and ``cases`` ((N, dtype, valid vocab)) given, with a share
+    or at ``V`` and ``cases`` ((N, dtype, valid vocab[, dlogits dtype]),
+    errors keyed by the case) given, with a share
     ``ignore_frac`` of the rows at the ignore index (``ce_labels``); timed
-    at N = ``timing_n`` in each dtype of ``timing``, beside
-    ``F.cross_entropy`` with the same ignored rows."""
+    at N = ``timing_n`` for each entry of ``timing`` (a dtype, or
+    "float32->bfloat16" for f32 logits and bf16 dlogits), beside
+    ``F.cross_entropy`` with the same ignored rows. Rows are keyed
+    (label, "fwd" / "bwd"), the label "bf16", "f32" or "f32->bf16"."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
-    cases = cases or [(8192, torch.bfloat16, None),
-                      (8192, torch.float32, None),
-                      (8184, torch.bfloat16, 50257),
-                      (8184, torch.float32, 50257)]
+    if cases is None:
+        cases = [(8192, torch.bfloat16, None), (8192, torch.float32, None),
+                 (8184, torch.bfloat16, 50257), (8184, torch.float32, 50257)]
     errs = {}
-    for N, dt, vv in cases:
+    for case in cases:
+        N, dt, vv = case[:3]
+        out = case[3] if len(case) > 3 else dt
         lg = (torch.randn(N, V, device=dev, generator=gen) * 3).to(dt)
         lab, g, _ = ce_labels(torch, N, V, gen, vv, ignore_frac)
         if not ignore_frac:
             lab[:4] = torch.tensor([0, 0, (vv or V) - 1, V - 1])
         per, lse = ce.ce_fwd(lg, lab, vv)
         per_p, lse_p = ce.ce_fwd_plain(lg, lab, vv)
-        d = ce.ce_bwd(lg, lab, lse_p, g, vv)
-        d_p = ce.ce_bwd_plain(lg, lab, lse_p, g, vv)
+        d = ce.ce_bwd(lg, lab, lse_p, g, vv, out_dtype=out)
+        d_p = ce.ce_bwd_plain(lg, lab, lse_p, g, vv, out_dtype=out)
         torch.cuda.synchronize()
-        label = "bf16" if dt == torch.bfloat16 else "f32"
-        errs[(N, dt, vv)] = check_all(
-            torch, f"fused_ce N={N} V={V} {dt} valid_vocab={vv}"
+        errs[case] = check_all(
+            torch, f"fused_ce N={N} V={V} {dt}"
+            + (f" -> {out} dlogits" if out != dt else "")
+            + f" valid_vocab={vv}"
             + (f" ignored {ignore_frac:g}" if ignore_frac else ""),
             (("per", per, per_p, LIM_LSE), ("lse", lse, lse_p, LIM_LSE),
-             ("dlogits", d, d_p, LIM_DLOGITS[label])))
+             ("dlogits", d, d_p, LIM_DLOGITS[dt_label(torch, out)])))
 
     rows = {}
     lib = torch.nn.functional.cross_entropy
-    for dt in (getattr(torch, n) for n in timing):
+    for name in timing:
+        src, _, dst = name.partition("->")
+        dt, out = getattr(torch, src), getattr(torch, dst or src)
         N = timing_n
         lg = (torch.randn(N, V, device=dev, generator=gen) * 3).to(dt)
         lab, g, lab64 = ce_labels(torch, N, V, gen, None, ignore_frac)
         per, lse = ce.ce_fwd(lg, lab)
         lgr = lg.detach().clone().requires_grad_()
         fwd_ms = timed(torch, lambda: ce.ce_fwd(lg, lab), flush)
-        bwd_ms = timed(torch, lambda: ce.ce_bwd(lg, lab, lse, g), flush)
+        bwd_ms = timed(torch, lambda: ce.ce_bwd(lg, lab, lse, g,
+                                                out_dtype=out), flush)
+        clean = {"fwd": timed(torch, lambda: ce.ce_fwd(lg, lab), flush,
+                              clean=True),
+                 "bwd": timed(torch, lambda: ce.ce_bwd(lg, lab, lse, g,
+                                                       out_dtype=out),
+                              flush, clean=True)}
         pfwd_ms = timed(torch, lambda: ce.ce_fwd_plain(lg, lab), flush,
                         iters=10)
-        pbwd_ms = timed(torch, lambda: ce.ce_bwd_plain(lg, lab, lse, g),
-                        flush, iters=10)
+        pbwd_ms = timed(torch, lambda: ce.ce_bwd_plain(
+            lg, lab, lse, g, out_dtype=out), flush, iters=10)
         lib_fwd = timed(torch, lambda: lib(lg, lab64, reduction="none"),
                         flush)
         lib_both = timed(torch, lambda: torch.autograd.grad(
             lib(lgr, lab64, reduction="none"), lgr, g.to(dt)), flush)
-        fb, fo, bb, bo = ce_cost(N, V, lg.element_size())
-        label = "bf16" if dt == torch.bfloat16 else "f32"
+        fb, fo, bb, bo = ce_cost(N, V, lg.element_size(),
+                                 torch.empty((), dtype=out).element_size())
+        label = dt_label(torch, dt) + (f"->{dt_label(torch, out)}"
+                                       if dst else "")
         for kind, ms, plain_ms, lib_ms, nb, ops in (
                 ("fwd", fwd_ms, pfwd_ms, lib_fwd, fb, fo),
                 ("bwd", bwd_ms, pbwd_ms, lib_both - lib_fwd, bb, bo)):
+            if dst and kind == "fwd":
+                continue                  # the forward is the f32 row's
             bound_ms, by = bound(nb, ops)
             rows[(label, kind)] = dict(ms=ms, plain_ms=plain_ms,
                                        library_ms=lib_ms, bound_ms=bound_ms,
@@ -1745,8 +1772,91 @@ def check_ce(torch, ce, flush, V=50304, cases=None,
                      if ignore_frac else "")
                   + f": kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"F.cross_entropy {lib_ms:.4f} ms, bound {bound_ms:.4f} "
-                  f"ms ({by}: {nb} B, {ops} ops)", flush=True)
+                  f"ms ({by}: {nb} B, {ops} ops), {bound_ms / ms:.1%} of "
+                  f"the bound (after a read-only flush {clean[kind]:.4f} "
+                  f"ms, {bound_ms / clean[kind]:.1%}); path: "
+                  f"{ce.describe(lg, out)}", flush=True)
+            if bound_ms < ms / 2:
+                b2_account(torch, f"ce_{kind} {label} N={N} V={V}",
+                           (lambda: ce.ce_fwd(lg, lab)) if kind == "fwd"
+                           else (lambda: ce.ce_bwd(lg, lab, lse, g,
+                                                   out_dtype=out)), flush)
     return errs, rows
+
+
+def b2_account(torch, what, fn, flush, n=20):
+    """What holds a B2 row under half its bound: the kernel's own device
+    time a launch (torch.profiler over ``n`` launches, the L2 flushed
+    before each, as ``timed`` does), the event time with no flush, and a
+    one-element fill's event time (the launch floor)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    dev = [e.self_device_time_total / e.count for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and ("ce_fwd_kernel" in e.key or "ce_bwd_kernel" in e.key)]
+    small = torch.empty(1, device="cuda")
+    unflushed = timed(torch, fn, small)
+    floor = timed(torch, lambda: small.fill_(1.0), small)
+    print(f"    under half its bound, {what}: the kernel on the device "
+          + (f"{dev[0] / 1e3:.4f} ms a launch (profiler, L2 flushed)"
+             if dev else "not measured (the profiler reported none)")
+          + f"; event time without the flush {unflushed:.4f} ms; a "
+          f"one-element fill {floor:.4f} ms", flush=True)
+
+
+# B2's layouts beyond the slice shapes, (N, V, logits, valid vocab, base
+# offset in elements, dlogits): vocabularies no multiple of 8 (rows start
+# at drifting offsets), bases 1 and 3 elements past a 16-byte boundary (a
+# [k:] view of a larger buffer), short batches (N 1, 7, 64) and phase 20's
+# N 256, valid_vocab inside a row's head (3) and inside its tail (V - 2),
+# f32 logits with bf16 dlogits and the converse
+B2_LAYOUTS = tuple(
+    [(300, V, dt, None, 0, dt) for V in (30522, 1003)
+     for dt in ("bfloat16", "float32")]
+    + [(300, V, dt, None, off, dt) for V in (30522, 1003)
+       for dt in ("bfloat16", "float32") for off in (1, 3)]
+    + [(N, 30522, dt, None, off, dt) for N in (1, 7, 64, 256)
+       for dt in ("bfloat16", "float32") for off in (0, 3)]
+    + [(64, 1003, dt, vv, off, dt) for vv in (3, 1001)
+       for dt in ("bfloat16", "float32") for off in (0, 1)]
+    + [(300, 50304, "float32", None, off, "bfloat16") for off in (0, 1, 3)]
+    + [(7, 30522, "float32", 30520, 1, "bfloat16"),
+       (300, 1003, "bfloat16", None, 3, "float32")])
+
+
+def check_ce_layouts(torch, ce, what=""):
+    """Phase 3, B2 at ``B2_LAYOUTS``: kernel vs plain at LIM_LSE /
+    LIM_DLOGITS (the dlogits' type's), labels at the first, the last valid,
+    the last and two outside columns ([0, vv - 1, V - 1, -1, V + 5])."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for N, V, dt, vv, off, out in B2_LAYOUTS:
+        dt, out = getattr(torch, dt), getattr(torch, out)
+        buf = (torch.randn(N * V + 8, device=dev, generator=gen) * 3).to(dt)
+        lg = buf[off:off + N * V].view(N, V)
+        lab = torch.randint(0, vv or V, (N,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        edge = torch.tensor([0, (vv or V) - 1, V - 1, -1, V + 5],
+                            dtype=torch.int32)[:N]
+        lab[:len(edge)] = edge
+        g = torch.rand(N, device=dev, generator=gen)
+        per, lse = ce.ce_fwd(lg, lab, vv)
+        per_p, lse_p = ce.ce_fwd_plain(lg, lab, vv)
+        d = ce.ce_bwd(lg, lab, lse_p, g, vv, out_dtype=out)
+        d_p = ce.ce_bwd_plain(lg, lab, lse_p, g, vv, out_dtype=out)
+        torch.cuda.synchronize()
+        label = f"{dt_label(torch, dt)}->{dt_label(torch, out)}"
+        check_all(
+            torch, f"fused_ce{what} N={N} V={V} {label} valid_vocab={vv} "
+            f"base +{off} ({ce.describe(lg, out)})",
+            (("per", per, per_p, LIM_LSE), ("lse", lse, lse_p, LIM_LSE),
+             ("dlogits", d, d_p, LIM_DLOGITS[dt_label(torch, out)])))
 
 
 # _select_token's knobs, (temperature, top_k, top_p): each alone, then all
@@ -4204,6 +4314,7 @@ def main():
     kvp_rows = check_kv_paged_write(torch, np, cw, flush, rng_pos)
     b1_errs, b1_rows = check_flash(torch, fa, flush)
     b2_errs, b2_rows = check_ce(torch, ce, flush)
+    check_ce_layouts(torch, ce)
     b5_errs, b5_rows = check_flash_block(torch, fb, flush)
     print("  LLaMA-13B's shapes:", flush=True)
     b4l_err, b4l_rows = check_mega_decode_llama(torch, md, flush, rng_pos)
@@ -4241,6 +4352,11 @@ def main():
         torch, ce, flush, V=BERT_V, cases=[(n_mlm, torch.bfloat16, None),
                                            (n_mlm, torch.float32, None)],
         timing_n=n_mlm, ignore_frac=0.25)
+    n_mlm20 = 2 * ERNIE_S                 # phase 20's MLM rows
+    b2m20_errs, b2m20_rows = check_ce(
+        torch, ce, flush, V=BERT_V, cases=[(n_mlm20, torch.bfloat16, None),
+                                           (n_mlm20, torch.float32, None)],
+        timing_n=n_mlm20, ignore_frac=0.25)
     print("  phase 24's and 25's shapes:", flush=True)
     b4d_err, b4d_row = check_mega_decode_draft(torch, md, flush, rng_pos)
     kvpg_rows = check_kv_paged_write(
@@ -4252,8 +4368,11 @@ def main():
         torch, fa, flush, shape=(G13_B, 16, G13_S, 128),
         cases=(("bfloat16", True, 0, 0),), timing=("bfloat16",))
     b2g_errs, b2g_rows = check_ce(torch, ce, flush, V=50304,
-                                  cases=[(G13_CHUNK, torch.float32, None)],
-                                  timing=("float32",), timing_n=G13_CHUNK)
+                                  cases=[(G13_CHUNK, torch.float32, None),
+                                         (G13_CHUNK, torch.float32, None,
+                                          torch.bfloat16)],
+                                  timing=("float32", "float32->bfloat16"),
+                                  timing_n=G13_CHUNK)
     del flush
     torch.cuda.empty_cache()
 
@@ -4533,11 +4652,14 @@ def main():
             "library_ms": row["library_ms"]})
     # BERT/ERNIE's shapes: B1 non-causal bf16 at batch 1 x 128 (phase 19's
     # serving launches), f32 at 2 x 128 (phase 20's oracle), B2 at V 2
-    # (phase 21's fine-tuning steps) and at V 30522 (phase 20's MLM)
+    # (phase 21's fine-tuning steps) and at V 30522: phase 20's MLM at its
+    # N 256 (its launches), and N 4096 (fine-tuning's 32 x 128, which no
+    # phase runs through the MLM head: no launches)
     b1e, b1f = b1e_errs[(torch.bfloat16, False, 0)], \
         b1f_errs[(torch.float32, False, 0)]
     b2c, b2m = b2c_errs[(FT_BATCH, torch.bfloat16, None)], \
         b2m_errs[(n_mlm, torch.float32, None)]
+    b2m20 = b2m20_errs[(n_mlm20, torch.float32, None)]
     for name, src, replaces, n, err, row in (
             ("flash_attn_fwd_noncausal_s128", "flash_attention_sm90.cu",
              b1_src, ernie["b1"], max(b1e["out"], b1e["lse"]),
@@ -4556,11 +4678,17 @@ def main():
             ("ce_bwd_v2", "fused_ce.cu", "paddle_tpu/kernels/fused_ce.py:210",
              ft_counts["ce_bwd"], b2c["dlogits"], b2c_rows[("bf16", "bwd")]),
             ("ce_fwd_v30522", "fused_ce.cu",
-             "paddle_tpu/kernels/fused_ce.py:172", b2_mlm[0],
+             "paddle_tpu/kernels/fused_ce.py:172", 0,
              max(b2m["per"], b2m["lse"]), b2m_rows[("f32", "fwd")]),
             ("ce_bwd_v30522", "fused_ce.cu",
+             "paddle_tpu/kernels/fused_ce.py:210", 0,
+             b2m["dlogits"], b2m_rows[("f32", "bwd")]),
+            ("ce_fwd_v30522_n256", "fused_ce.cu",
+             "paddle_tpu/kernels/fused_ce.py:172", b2_mlm[0],
+             max(b2m20["per"], b2m20["lse"]), b2m20_rows[("f32", "fwd")]),
+            ("ce_bwd_v30522_n256", "fused_ce.cu",
              "paddle_tpu/kernels/fused_ce.py:210", b2_mlm[1],
-             b2m["dlogits"], b2m_rows[("f32", "bwd")])):
+             b2m20["dlogits"], b2m20_rows[("f32", "bwd")])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/kernels/csrc/{src}",
@@ -4570,10 +4698,12 @@ def main():
             "library_ms": row["library_ms"]})
     # phase 24's and 25's shapes: B4 at the draft's f32 steps and
     # kv_paged_write into GPT-6.7B's pool (phase 24's launches), B1 at
-    # GPT-1.3B's D 128 and B2 on one f32 loss chunk (phase 25's features-on
-    # run)
+    # GPT-1.3B's D 128 and B2 on one f32 loss chunk, its backward to bf16
+    # dlogits (phase 25's features-on run; its backward to f32 dlogits,
+    # which phase 25 no longer launches, beside it)
     b1g, b2g = b1g_errs[(torch.bfloat16, True, 0)], \
         b2g_errs[(G13_CHUNK, torch.float32, None)]
+    b2gh = b2g_errs[(G13_CHUNK, torch.float32, None, torch.bfloat16)]
     for name, src, replaces, n, err, row in (
             ("mega_decode_step_draft125m", "mega_decode.cu",
              "paddle_tpu/kernels/mega_decode.py:107", spec["b4"], b4d_err,
@@ -4591,8 +4721,11 @@ def main():
              "paddle_tpu/kernels/fused_ce.py:172", g13["counts"]["ce_fwd"],
              max(b2g["per"], b2g["lse"]), b2g_rows[("f32", "fwd")]),
             ("ce_bwd_chunk2048_f32", "fused_ce.cu",
+             "paddle_tpu/kernels/fused_ce.py:210", 0, b2g["dlogits"],
+             b2g_rows[("f32", "bwd")]),
+            ("ce_bwd_chunk2048_f32_to_bf16", "fused_ce.cu",
              "paddle_tpu/kernels/fused_ce.py:210", g13["counts"]["ce_bwd"],
-             b2g["dlogits"], b2g_rows[("f32", "bwd")])):
+             b2gh["dlogits"], b2g_rows[("f32->bf16", "bwd")])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/kernels/csrc/{src}",

@@ -146,8 +146,8 @@ class _FusedLinearCE(torch.autograd.Function):
     logits again, B2 backward (``ce_bwd``) for dlogits scaled by ``g /
     count`` (0 on ignored rows), ``dhidden = dlogits @ W`` and ``dW +=
     dlogits^T @ hidden`` into one f32 accumulator, cast once at the end.
-    For a bf16 ``W`` the f32 dlogits are rounded to bf16 for the two
-    backward GEMMs (each with an f32 output)."""
+    For a bf16 ``W``, B2 writes the dlogits of the f32 logits rounded to
+    bf16 for the two backward GEMMs (each with an f32 output)."""
 
     @staticmethod
     def _rows(hidden, s, C):
@@ -192,9 +192,9 @@ class _FusedLinearCE(torch.autograd.Function):
         for s in range(0, N, C):
             h = _FusedLinearCE._rows(hidden, s, C)
             lg = _mm_f32(h, wm)
-            dlg = ce_bwd(lg, idx[s:s + C], lse[s:s + C], scale[s:s + C])
+            dlg = ce_bwd(lg, idx[s:s + C], lse[s:s + C], scale[s:s + C],
+                         out_dtype=weight.dtype)          # [C, V]
             del lg
-            dlg = dlg.to(weight.dtype)                    # [C, V]
             n = min(C, N - s)
             dhidden[s:s + n] = _mm_f32(dlg[:n], wm.t()).to(hidden.dtype)
             dwm += _mm_f32(h.t(), dlg)

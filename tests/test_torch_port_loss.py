@@ -4,7 +4,11 @@ paddle_tpu.
 The port's ``ce_fwd`` / ``ce_bwd`` run their plain versions on CPU
 tensors; they are held against paddle_tpu's Pallas kernels in interpret
 mode, both the grid-free body and the gridded TPU body (``force_grid``),
-at N=300 rows, V=1000 columns, with and without a padded-vocab tail.
+at N=300 rows, V=1000, 1001 and 1003 columns, with and without a
+padded-vocab tail, and with bf16 dlogits of f32 logits (``out_dtype``).
+The host's split of a row for the CUDA kernels (``row_split``) is
+checked to cover every column once, and the backward's output to share
+the logits' offset from a 16-byte boundary.
 ``cross_entropy`` is held against paddle_tpu's, with the fused-CE knob
 off and on, through paddle_tpu's eager tape for the grads. Inputs are
 made with numpy from a seed and handed to both sides.
@@ -51,11 +55,8 @@ def _ce_inputs(N=300, V=1000, vv=None, seed=0):
     return lg, lab, g
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("valid_vocab", [None, 900])
-@pytest.mark.parametrize("force_grid", [False, True])
-def test_ce_plain_matches_pallas_interpret(dtype, valid_vocab, force_grid):
-    lg, lab, g = _ce_inputs(vv=valid_vocab, seed=bool(valid_vocab))
+def _hold_ce_to_pallas(dtype, valid_vocab, force_grid, V=1000):
+    lg, lab, g = _ce_inputs(V=V, vv=valid_vocab, seed=bool(valid_vocab))
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
     jlg = jnp.asarray(lg).astype(jdt)
@@ -79,6 +80,91 @@ def test_ce_plain_matches_pallas_interpret(dtype, valid_vocab, force_grid):
     want = _f32(jd)
     rtol = 1e-6 if dtype == "float32" else 2.0 ** -7
     np.testing.assert_allclose(d.float().numpy(), want, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("valid_vocab", [None, 900])
+@pytest.mark.parametrize("force_grid", [False, True])
+def test_ce_plain_matches_pallas_interpret(dtype, valid_vocab, force_grid):
+    _hold_ce_to_pallas(dtype, valid_vocab, force_grid)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("V,valid_vocab", [(1001, None), (1001, 999),
+                                           (1003, None), (1003, 900)])
+@pytest.mark.parametrize("force_grid", [False, True])
+def test_ce_plain_matches_pallas_interpret_unaligned_vocab(
+        dtype, V, valid_vocab, force_grid):
+    """The same at vocabularies that are no multiple of 8 (the rows of
+    the kernels' inputs start at drifting offsets from a 16-byte
+    boundary), with and without a padded-vocab tail."""
+    _hold_ce_to_pallas(dtype, valid_vocab, force_grid, V=V)
+
+
+@pytest.mark.parametrize("V,valid_vocab", [(1000, None), (1003, None),
+                                           (1003, 900)])
+def test_ce_bwd_plain_bf16_out_matches_pallas_f32_cast(V, valid_vocab):
+    """``out_dtype=torch.bfloat16`` on f32 logits (the fused loss's bf16
+    dlogits) against paddle_tpu's f32 ``ce_bwd`` cast to bf16: one bf16
+    rounding step of the entry (rtol 2**-7), masked zeros exactly zero."""
+    lg, lab, g = _ce_inputs(V=V, vv=valid_vocab, seed=2)
+    jlg, jlab = jnp.asarray(lg), jnp.asarray(lab)
+    _, jlse = jax_ce_fwd(jlg, jlab, valid_vocab, interpret=True)
+    jd = jax_ce_bwd(jlg, jlab, jlse, jnp.asarray(g), valid_vocab,
+                    interpret=True).astype(jnp.bfloat16)
+    d = tce.ce_bwd_plain(torch.from_numpy(lg), torch.from_numpy(lab),
+                         torch.from_numpy(np.asarray(jlse)),
+                         torch.from_numpy(g), valid_vocab,
+                         out_dtype=torch.bfloat16)
+    assert d.dtype == torch.bfloat16 and d.shape == (300, V)
+    np.testing.assert_allclose(d.float().numpy(), _f32(jd), rtol=2.0 ** -7,
+                               atol=0)
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+def test_ce_split_covers_every_column_once(elem):
+    """The host's split (``row_split``, which the kernels compute row by
+    row): over a grid of N, V and base offsets, each row's head, body
+    vectors and tail cover every column of [0, n) exactly once, the head
+    ends on a 16-byte boundary, and the tail is shorter than a vector."""
+    for N in (1, 7, 64, 256, 263):
+        for V in (1, 2, 7, 9, 1001, 1003, 30522, 50304):
+            for width in {16 // elem, 8}:    # the backward's bf16 side: 8
+                for base in range(width):
+                    for row in range(min(N, 2 * width + 1)):
+                        start = (base + row * V) % width
+                        for n in {V, max(1, V - 2)}:
+                            head, nvec, tail = tce.row_split(start, n, width)
+                            assert min(head, nvec, tail) >= 0
+                            cover = np.zeros(n, np.int64)
+                            cover[:head] += 1
+                            assert head == n or (start + head) % width == 0
+                            cover[head:head + nvec * width] += 1
+                            cover[head + nvec * width:] += 1
+                            assert tail == n - head - nvec * width < width \
+                                or head == n
+                            assert (cover == 1).all(), (N, V, n, start)
+
+
+@pytest.mark.parametrize("dt_in,dt_out", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_ce_bwd_output_shares_the_input_offset(dt_in, dt_out):
+    """The backward's dlogits sit as far past a 16-byte boundary as the
+    logits (modulo the wider type's vector), so a 16-byte boundary of the
+    narrower type's row is one of the other's: checked on views of a
+    buffer at every element offset."""
+    N, V = 5, 1003
+    elem_in = torch.empty((), dtype=dt_in).element_size()
+    elem_out = torch.empty((), dtype=dt_out).element_size()
+    step = 16 // max(elem_in, elem_out)
+    buf = torch.empty(N * V + 16, dtype=dt_in)
+    for k in range(16 // elem_in):
+        lg = buf[k:k + N * V].view(N, V)
+        out = tce._like_offset(lg, dt_out)
+        assert out.shape == (N, V) and out.dtype == dt_out
+        assert out.is_contiguous()
+        assert tce._offset(out) % step == tce._offset(lg) % step
 
 
 def test_online_lse_fully_masked_row_is_neg_inf_not_nan():
