@@ -296,7 +296,33 @@ failure:
    same config cut to 2 layers, f32, card vs a CPU copy at batch 2 x
    1100 (the fused loss in two chunks, the second padded), loss and every
    grad by phase 7's rule (B1 forward 2 + 2, backward 2, B2 2 + 2).
-26. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
+26. the training API (TrainStep's windows, warm, skip and flush,
+   eval_fn; the optimizers, schedulers and clips of paddle_tpu): GPT-125M
+   at bench.py's geometry (bf16, AdamW multi_precision, OneCycleLR, batch
+   8 x 1024), every run from one snapshot of parameters, slots, counters
+   and scheduler: warm(ids, ids, scan_k=4) returns paddle_tpu's sites and
+   moves no parameter, counter, scheduler or generator state, its slots
+   are zeros and f32 copies, and it runs no nvcc; 8 calls, 2 x
+   scan_steps(4) (the first time under set_sync_debug_mode("error")), 8
+   calls again and the windows again: the windows' losses, parameters,
+   slots, counters and scheduler equal the calls' bit for bit, or within
+   the card's own spread (hold_runs: torch's embedding backward uses
+   atomics), B1 96 / 96 launches on the tensor-core kernels and B2 8 / 8
+   in the windows, no plain version; ms a step by calls and by windows,
+   one window profiled; with accumulate_steps=2, 2 x scan_steps(3),
+   flush_accumulation, skip_step and a call against 6 calls, the same
+   three and a call (counters 8, 4, 4); eval_fn's logits equal model(ids)
+   in eval mode, the training mode restored. BERT-base fine-tuning at
+   phase 21's 32 x 128, dropout 0.1, Lamb + ClipGradByGlobalNorm +
+   LinearWarmup over PolynomialDecay: scan_steps(4) equals 4 calls by the
+   same rule (so the masks are equal); at lr 0 a run with a skip_step at step 2
+   gives the unfaulted run's losses at steps 3-5. Each of the nine A4
+   optimizers, and SGD / Momentum under ClipGradByNorm /
+   ClipGradByValue: 3 steps of gpt_tiny in f32 on the card against a CPU
+   copy that takes the card's parameters, slots and gradients before each
+   update (atol 1e-6 + rtol 1e-5; losses rel 1e-5), the card's updates
+   under set_sync_debug_mode("error").
+27. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
    wgmma kernels of phases 8 and 14, and the f32 3xTF32 ones of phases 7
    and 13, their launches from the tensor-core counts; B3 five times:
    kv_slot_write and kv_paged_write with their launches in phases 6 and
@@ -310,7 +336,7 @@ failure:
    draft's shape and kv_paged_write into GPT-6.7B's pool with phase 24's
    launches, B1 at GPT-1.3B's D 128 and B2 on an f32 loss chunk with
    phase 25's features-on launches), the serving lines of phases 15 and
-   16, phase 19's latency and phase 22's to 25's figures, the card line,
+   16, phase 19's latency and phase 22's to 26's figures, the card line,
    and last the {"ok": true, "device": {...}} line.
 
 ``python3 chip_smoke.py --sp-cards`` on a host with 4 or more cards runs
@@ -323,6 +349,7 @@ their summary lines and no result line: copied into a checkout of an
 earlier commit, it measures that commit's serving the same way.
 """
 import atexit
+import copy
 import dataclasses
 import gc
 import importlib
@@ -4178,6 +4205,441 @@ def gpt13_training(torch, pkg, card):
             "dots": dots}
 
 
+# phase 26: the training API. GPT-125M at bench.py's geometry takes two
+# windows of API_K steps against 2 x API_K calls; BERT-base fine-tunes at
+# phase 21's shape with Lamb, the global clip and warmup over polynomial
+# decay; the nine optimizers of A4 (and two clips) run gpt_tiny in f32 on
+# the card against a CPU copy.
+API_K = 4
+API_OPTIMIZERS = (
+    ("SGD", dict(learning_rate=0.1), None),
+    ("Momentum", dict(learning_rate=0.05, use_nesterov=True), None),
+    ("Adamax", dict(learning_rate=0.01), None),
+    ("Adagrad", dict(learning_rate=0.1), None),
+    ("Adadelta", dict(learning_rate=1.0, rho=0.9), None),
+    ("RMSProp", dict(learning_rate=0.01, centered=True, momentum=0.9), None),
+    ("Lamb", dict(learning_rate=0.01, lamb_weight_decay=0.01,
+                  exclude_from_weight_decay_fn=lambda p: p.ndim == 1), None),
+    ("Lars", dict(learning_rate=0.1, lars_coeff=0.02,
+                  exclude_from_weight_decay=["bias"]), None),
+    ("DGCMomentum", dict(learning_rate=0.1, rampup_begin_step=1,
+                         rampup_step=1, sparsity=[0.5, 0.9]), None),
+    ("SGD", dict(learning_rate=0.1), ("ClipGradByNorm", 0.05)),
+    ("Momentum", dict(learning_rate=0.05), ("ClipGradByValue", 0.01)),
+)
+
+
+def snapshot(step):
+    """Copies of ``step``'s parameters, optimizer slots, counters (its
+    own and the optimizer's step number) and scheduler state."""
+    opt = step.optimizer
+    return ({n: p.detach().clone() for n, p in step.model.named_parameters()},
+            {s: {n: t.clone() for n, t in d.items()}
+             for s, d in opt._accumulators.items()},
+            (step.step_count, step.update_count, opt._step_count),
+            copy.deepcopy(opt._learning_rate.state_dict()))
+
+
+def restore(torch, step, snap):
+    """Put ``snap`` (from ``snapshot``) back into ``step`` (or another
+    TrainStep over the same model with the same kind of optimizer)."""
+    params, slots, counters, sched = snap
+    opt = step.optimizer
+    with torch.no_grad():
+        for n, p in step.model.named_parameters():
+            p.copy_(params[n])
+            p.grad = None
+    opt._accumulators = {s: {n: t.clone() for n, t in d.items()}
+                         for s, d in slots.items()}
+    step.step_count, step.update_count, opt._step_count = counters
+    opt._learning_rate.set_state_dict(copy.deepcopy(sched))
+
+
+def snapshot_diff(torch, a, b):
+    """(max |difference| over parameters and slots, counters and
+    scheduler equal) between two snapshots."""
+    if set(a[1]) != set(b[1]):
+        return math.inf, False
+    worst = 0.0
+    for x, y in ((a[0], b[0]), *((a[1][s], b[1][s]) for s in a[1])):
+        for n in x:
+            worst = max(worst, (x[n].float() - y[n].float()).abs().max()
+                        .item())
+    return worst, (a[2], a[3]) == (b[2], b[3])
+
+
+def hold_runs(what, repeat, other, base_losses, repeat_losses,
+              other_losses):
+    """Hold a run through windows to the same steps as single calls:
+    equal counters and scheduler, and losses, parameters and slots bit
+    for bit, or within the larger of four times a second calls' run's own
+    spread and 1e-7 on a parameter or slot (1e-6 of the loss's size).
+    One repeat cannot prove the card deterministic: torch's CUDA
+    embedding backward sums a row's duplicate indices with atomics, and
+    BERT-base's token-type embedding (4,096 indices into 2 rows) differs
+    by up to 3e-8 between identical calls. A wrong lr, step number or
+    mask moves them by far more (an update at a 4e-5 lr is ~4e-5).
+    ``repeat`` and ``other`` are (max |param or slot diff| against the
+    first calls' run, counters and scheduler equal) of the second calls'
+    run and of the windows' run; then the three runs' losses."""
+    loss_other = max(abs(a - b) for a, b in zip(other_losses, base_losses))
+    loss_repeat = max(abs(a - b) for a, b in zip(repeat_losses, base_losses))
+    if not (other[1] and repeat[1]):
+        fail(f"{what}: counters or scheduler differ from the calls'")
+    if other[0] == 0.0 and loss_other == 0.0:
+        return "bit for bit"
+    lim = max(4 * repeat[0], 1e-7)
+    lim_loss = max(4 * loss_repeat,
+                   1e-6 * max(abs(x) for x in base_losses))
+    if not (other[0] <= lim and loss_other <= lim_loss):
+        fail(f"{what}: windows vs calls max |diff| {other[0]} (losses "
+             f"{loss_other}) beyond {lim} ({lim_loss}); the calls' own "
+             f"spread {repeat[0]} ({loss_repeat})")
+    return (f"within the card's own spread (params/slots {other[0]:.2e} <= "
+            f"{lim:.2e}, losses {loss_other:.2e} <= {lim_loss:.2e}; a second "
+            f"run of the calls: {repeat[0]:.2e} / {loss_repeat:.2e})")
+
+
+def gpt_window(torch, pkg, card):
+    """Phase 26, GPT-125M: warm, windows against calls (also under
+    gradient merge), launches, eval_fn, timing. Returns the numbers the
+    summary takes."""
+    np, fa, ce, fb = pkg["np"], pkg["fa"], pkg["ce"], pkg["fb"]
+    model = pkg["GPT"](pkg["gpt_125m"](), seed=0).bfloat16()
+    torch.cuda.empty_cache()
+
+    def make(k=1):
+        opt = pkg["AdamW"](learning_rate=pkg["lr"].OneCycleLR(1e-3, 40),
+                           parameters=model.parameters(),
+                           multi_precision=True)
+        return pkg["TrainStep"](model, model.make_loss_fn(), opt,
+                                accumulate_steps=k)
+    step = make()
+    n = 2 * API_K
+    rs = np.random.RandomState(26)
+    ids = torch.from_numpy(rs.randint(0, model.cfg.vocab_size,
+                                      (n, B_SLICE, L_SLICE))).to(model.device)
+    windows = (ids[:API_K], ids[API_K:])
+    pkg["seed"](0)
+    before = snapshot(step)
+    rng = pkg["random"].get_rng_state()
+    nvcc = pkg["kbuild"].summary()["nvcc_runs"]
+    recs = step.warm(ids[0], ids[0], scan_k=API_K)
+    snap = snapshot(step)
+    after_rng = pkg["random"].get_rng_state()
+    sites = [r["site"] for r in recs]
+    if sites != ["train_step", f"train_step_scan_k{API_K}"]:
+        fail(f"warm: sites {sites}")
+    moved = max((snap[0][n] != before[0][n]).sum().item() for n in snap[0])
+    if (moved or snap[2:] != before[2:]
+            or pkg["kbuild"].summary()["nvcc_runs"] != nvcc
+            or after_rng["seed"] != rng["seed"]
+            or any(not torch.equal(after_rng["states"][d], s)
+                   for d, s in rng["states"].items())):
+        fail(f"warm moved state: {moved} parameter elements, counters "
+             f"{before[2]} -> {snap[2]}, nvcc runs {nvcc} -> "
+             f"{pkg['kbuild'].summary()['nvcc_runs']}")
+    masters = snap[1]["master"]
+    if any(masters[n].dtype != torch.float32 or not torch.equal(
+            masters[n], snap[0][n].float()) for n in snap[0]) or any(
+            m.any().item() for m in snap[1]["moment1"].values()):
+        fail("warm: slots are not zeros and f32 copies of the parameters")
+    print(f"  warm: sites {sites}, {recs[0]['slots']} parameters with slots,"
+          f" built {recs[0]['built']} (nvcc runs stay {nvcc}), "
+          f"{recs[0]['seconds']:.3f} s; parameters, counters, scheduler and "
+          "generators unchanged", flush=True)
+
+    def calls():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [step(b, b) for b in ids]
+        torch.cuda.synchronize()
+        return [float(x) for x in losses], time.perf_counter() - t0
+
+    def scans(debug=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if debug:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses = [step.scan_steps(API_K, w, w) for w in windows]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return ([float(x) for x in torch.cat(losses)],
+                time.perf_counter() - t0)
+
+    runs = {}
+    attn = (fa.flash_attn_fwd, fa.flash_attn_bwd, fb.flash_block_fwd,
+            fb.flash_block_bwd)
+    # the first two runs check, the next three pairs (in turns) time
+    order = [("calls", calls), ("windows", lambda: scans(True))] + [
+        (f"{name} {r}", fn) for r in (1, 2, 3)
+        for name, fn in (("calls", calls), ("windows", scans))]
+    for name, fn in order:
+        restore(torch, step, snap)
+        if name == "windows":
+            plain, restore_plain = _count_plain([fa, ce, fb])
+            reset_counts(*attn)
+            ce.ce_fwd.launches = ce.ce_bwd.launches = 0
+            try:
+                runs[name] = fn()
+            finally:
+                restore_plain()
+            counts = {w.__name__: (w.launches, w.tc_launches)
+                      for w in attn}
+            counts.update(ce_fwd=ce.ce_fwd.launches,
+                          ce_bwd=ce.ce_bwd.launches)
+        else:
+            runs[name] = fn()
+        runs[name] += (snapshot(step) if name in ("calls", "windows",
+                                                  "calls 1") else None,)
+    b1 = n * LAYERS
+    want = {"flash_attn_fwd": (b1, b1), "flash_attn_bwd": (b1, b1),
+            "flash_block_fwd": (0, 0), "flash_block_bwd": (0, 0),
+            "ce_fwd": n, "ce_bwd": n}
+    if counts != want or any(plain.values()):
+        fail(f"windows: launches (all, tensor-core) {counts} != {want}, "
+             f"plain calls {plain}")
+    base = runs["calls"]
+    how = hold_runs("GPT-125M windows",
+                    snapshot_diff(torch, base[2], runs["calls 1"][2]),
+                    snapshot_diff(torch, base[2], runs["windows"][2]),
+                    base[0], runs["calls 1"][0], runs["windows"][0])
+    if any(runs[f"windows {r}"][0] != runs["windows"][0] for r in (1, 2, 3)):
+        fail("a timed windows run gave other losses than the first")
+    vals = base[0]
+    if not all(math.isfinite(x) for x in vals):
+        fail(f"GPT-125M losses {vals}: not finite")
+    per_step = {kind: sorted(runs[f"{kind} {r}"][1] / n * 1e3
+                             for r in (1, 2, 3))
+                for kind in ("calls", "windows")}
+    ms_call, ms_window = per_step["calls"][1], per_step["windows"][1]
+    print(f"  {n} calls vs 2 x scan_steps({API_K}) (the first window run "
+          "under set_sync_debug_mode('error')): losses "
+          f"{['%.4f' % x for x in vals]}, equal {how}; launches (all, "
+          f"tensor-core) {counts}, plain calls {plain}; ms a step, three "
+          f"runs of 8 steps each way in turns (sorted): calls "
+          f"{[round(x, 1) for x in per_step['calls']]}, windows "
+          f"{[round(x, 1) for x in per_step['windows']]} (medians "
+          f"{ms_call:.1f} / {ms_window:.1f}; smoke numbers, {card})",
+          flush=True)
+
+    restore(torch, step, snap)
+    prof, prof_wall = profile_window(
+        torch, f"window of {API_K} steps",
+        lambda: step.scan_steps(API_K, windows[0], windows[0]))
+    busy = (None if not prof else
+            sum(r[0] for r in prof) / prof_wall)
+
+    # gradient merge: windows of 3 that drift across the phase, a flush
+    # (a no-op: 6 steps leave the cadence aligned), a skipped micro-step
+    # and a call, against the same sequence of single calls, twice
+    step2 = make(k=2)
+    merged = []
+    for use_windows in (False, True, False):
+        restore(torch, step2, snap)
+        losses = []
+        if use_windows:
+            for w in (ids[:3], ids[3:6]):
+                losses += [float(x) for x in step2.scan_steps(3, w, w)]
+        else:
+            losses += [float(step2(b, b)) for b in ids[:6]]
+        step2.flush_accumulation()
+        step2.skip_step()
+        losses.append(float(step2(ids[6], ids[6])))
+        merged.append((losses, snapshot(step2)))
+    if merged[0][1][2] != (8, 4, 4):
+        fail(f"gradient merge counters {merged[0][1][2]} != (8, 4, 4)")
+    d = [snapshot_diff(torch, merged[0][1], m[1]) for m in merged]
+    how2 = hold_runs("GPT-125M gradient merge", d[2], d[1],
+                     merged[0][0], merged[2][0], merged[1][0])
+    print(f"  accumulate_steps=2: 2 x scan_steps(3), flush_accumulation, "
+          f"skip_step, one call against 6 calls and the same: losses "
+          f"{['%.4f' % x for x in merged[0][0]]}, equal {how2}; counters "
+          f"(step, update, t) {merged[0][1][2]}", flush=True)
+
+    x = ids[0][:2]
+    got = step.eval_fn()(x)
+    model.eval()
+    with torch.no_grad():
+        want_logits = model(x)
+    model.train()
+    if not torch.equal(got, want_logits) or not model.training:
+        fail("eval_fn's logits differ from model(ids) in eval mode, or the "
+             "training mode was not restored")
+    print(f"  eval_fn: logits {list(got.shape)} equal to model(ids) in eval "
+          "mode, bit for bit; training mode restored", flush=True)
+    del model, step, step2, snap, before, runs, merged
+    release(torch)
+    return {"losses": vals, "window_vs_calls": how, "merge": how2,
+            "ms_per_step_calls": [round(x, 3) for x in per_step["calls"]],
+            "ms_per_step_window": [round(x, 3) for x in per_step["windows"]],
+            "window_busy_share": None if busy is None else round(busy, 4),
+            "launches": counts}
+
+
+def bert_window(torch, pkg, card):
+    """Phase 26, BERT-base fine-tuning with Lamb: window masks, and masks
+    after a skip at learning rate 0."""
+    np = pkg["np"]
+    cfg = pkg["bert_base"]()
+    model = pkg["BertCls"](cfg, num_classes=2, seed=0).bfloat16()
+    batch = finetune_batch(torch, np, cfg.vocab_size, model.device)
+    stacked = [torch.stack([t] * API_K) for t in batch]
+
+    def make(lr):
+        lrm = pkg["lr"]
+        sched = lrm.LinearWarmup(lrm.PolynomialDecay(lr, 20, end_lr=0.0), 2,
+                                 0.0, lr)
+        opt = pkg["optim"].Lamb(learning_rate=sched, lamb_weight_decay=0.01,
+                                parameters=model.parameters(),
+                                grad_clip=pkg["clip"].ClipGradByGlobalNorm(
+                                    1.0), multi_precision=True)
+        return pkg["TrainStep"](model, model.loss_fn, opt, n_inputs=3)
+    step = make(1e-4)
+    step.warm(*batch, scan_k=API_K)
+    snap = snapshot(step)
+    pkg["seed"](0)
+    runs = []                 # calls, a window, calls, a window
+    for use_window in (False, True, False, True):
+        restore(torch, step, snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if use_window:
+            losses = step.scan_steps(API_K, *stacked)
+        else:
+            losses = torch.stack([step(*batch) for _ in range(API_K)])
+        torch.cuda.synchronize()
+        runs.append(([float(x) for x in losses], time.perf_counter() - t0,
+                     snapshot(step) if len(runs) < 3 else None))
+    how = hold_runs("BERT-base window",
+                    snapshot_diff(torch, runs[0][2], runs[2][2]),
+                    snapshot_diff(torch, runs[0][2], runs[1][2]),
+                    runs[0][0], runs[2][0], runs[1][0])
+    window = runs[1][0]
+    ms_call, ms_window = (runs[2][1] / API_K * 1e3, runs[3][1] / API_K * 1e3)
+    print(f"  BERT-base, Lamb + global clip + warmup over polynomial decay: "
+          f"scan_steps({API_K}) losses {['%.4f' % x for x in window]} equal "
+          f"{API_K} calls' {how}, parameters and slots too (so the dropout "
+          f"masks are equal); {ms_call:.1f} ms a step by calls, "
+          f"{ms_window:.1f} by a window (smoke numbers, the second of two "
+          f"runs each; {card})", flush=True)
+    del runs
+
+    zero = make(0.0)                  # snap's weights, zero's own schedule
+    zsnap = snap[:3] + (copy.deepcopy(
+        zero.optimizer._learning_rate.state_dict()),)
+    runs = []
+    for skip in (False, True):
+        restore(torch, zero, zsnap)
+        losses = []
+        for i in range(5):
+            if skip and i == 1:
+                zero.skip_step()
+                losses.append(None)
+            else:
+                losses.append(float(zero(*batch)))
+        runs.append(losses)
+    if runs[1][2:] != runs[0][2:] or len(set(runs[0])) < 4:
+        fail(f"BERT-base at lr 0: losses with a skip {runs[1]} vs without "
+             f"{runs[0]} (steps 3-5 must be equal, and the masks must move)")
+    print(f"  at lr 0: losses {['%.4f' % x for x in runs[0]]}, with a skip "
+          f"at step 2 {['-' if x is None else '%.4f' % x for x in runs[1]]}:"
+          " steps 3-5 equal, bit for bit", flush=True)
+    del model, step, zero, snap, zsnap
+    release(torch)
+    return {"window": window, "window_vs_calls": how,
+            "lr0": runs[0], "lr0_skip": runs[1],
+            "ms_per_step_calls": round(ms_call, 3),
+            "ms_per_step_window": round(ms_window, 3)}
+
+
+def optimizers_on_card(torch, pkg):
+    """Phase 26, A4: each of the nine optimizers, and SGD / Momentum
+    under ClipGradByNorm / ClipGradByValue, 3 steps of gpt_tiny in f32 on
+    the card against a CPU copy. Before each step the CPU side takes the
+    card's parameters, slots and gradients, so both updates start from the
+    same state and differ only by the card's arithmetic (fused
+    multiply-adds, reduction order): parameters and slots within atol
+    1e-6 + rtol 1e-5; the losses within rel 1e-5 (phase 7's rule). The
+    card's updates run under set_sync_debug_mode("error")."""
+    np, GPT = pkg["np"], pkg["GPT"]
+    cfg = pkg["gpt_tiny"]()
+    ids = pkg["np"].random.RandomState(3).randint(0, cfg.vocab_size, (2, 64))
+    rows = []
+    for cls, kw, clip in API_OPTIMIZERS:
+        card = GPT(cfg, seed=3).train()
+        cpu = GPT(cfg, device="cpu", seed=4).train()
+        pkg["load"](cpu, {n: p.detach().cpu().numpy()
+                          for n, p in card.named_parameters()})
+        opts = [getattr(pkg["optim"], cls)(
+            parameters=m.named_parameters(), **kw,
+            grad_clip=(None if clip is None
+                       else getattr(pkg["clip"], clip[0])(clip[1])))
+            for m in (card, cpu)]
+        worst, worst_loss = 0.0, 0.0
+        for _ in range(3):
+            losses = []
+            for m in (card, cpu):
+                x = torch.from_numpy(ids).to(m.device)
+                loss = m.loss_fn(m(x), x)
+                loss.backward()
+                losses.append(loss.item())
+            worst_loss = max(worst_loss, abs(losses[0] - losses[1])
+                             / abs(losses[1]))
+            with torch.no_grad():
+                for (n, pc), ph in zip(card.named_parameters(),
+                                       cpu.parameters()):
+                    ph.copy_(pc.cpu())
+                    ph.grad = pc.grad.cpu()
+            opts[1]._accumulators = {
+                s: {n: t.cpu().clone() for n, t in d.items()}
+                for s, d in opts[0]._accumulators.items()}
+            opts[1]._step_count = opts[0]._step_count
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                opts[0].step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            opts[1].step()
+            pairs = [(pc, ph) for pc, ph in zip(card.parameters(),
+                                                cpu.parameters())]
+            pairs += [(opts[0]._accumulators[s][n], t)
+                      for s, d in opts[1]._accumulators.items()
+                      for n, t in d.items()]
+            for a, b in pairs:
+                a = a.detach().cpu()
+                excess = ((a - b).abs() - 1e-5 * b.abs()).max().item()
+                worst = max(worst, excess)
+            for m, o in zip((card, cpu), opts):
+                o.clear_grad(set_to_zero=False)
+        name = cls + ("" if clip is None else f" + {clip[0]}")
+        if not (worst <= 1e-6 and worst_loss <= 1e-5):
+            fail(f"{name}: card vs CPU max(|diff| - 1e-5 |cpu|) {worst} > "
+                 f"1e-6 or loss rel {worst_loss} > 1e-5")
+        rows.append(f"{name} {worst:.1e}")
+        del card, cpu, opts
+    print("  A4 on gpt_tiny f32, 3 steps, card vs CPU from the same state "
+          "each step (max |diff| - 1e-5 |cpu| over parameters and slots, "
+          "limit 1e-6; updates under set_sync_debug_mode('error')): "
+          + ", ".join(rows), flush=True)
+    return rows
+
+
+def training_api(torch, pkg, card):
+    """Phase 26: the training API (A5, A4) on the card."""
+    print(f"phase 26: the training API: GPT-125M windows (bf16, AdamW "
+          f"multi_precision, OneCycleLR, batch {B_SLICE} x {L_SLICE}), "
+          f"BERT-base fine-tuning windows (Lamb), the A4 optimizers",
+          flush=True)
+    release(torch)
+    out = gpt_window(torch, pkg, card)
+    out["bert"] = bert_window(torch, pkg, card)
+    out["optimizers"] = optimizers_on_card(torch, pkg)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4206,6 +4668,10 @@ def main():
                                              gpt_125m, gpt_1p3b, gpt_6p7b,
                                              llama_13b)
         from paddle_tpu_torch.models import generation as gm
+        from paddle_tpu_torch import optimizer as optim
+        from paddle_tpu_torch.framework import random as framework_random
+        from paddle_tpu_torch.models import gpt_tiny
+        from paddle_tpu_torch.nn import clip as nn_clip
         from paddle_tpu_torch.optimizer import AdamW
         # the module's name is shadowed by its flash_attention function
         nnfa = importlib.import_module(
@@ -4232,7 +4698,9 @@ def main():
            "BertCls": BertForSequenceClassification,
            "BertMLM": BertForMaskedLM, "bert_base": bert_base, "jit": jit,
            "Config": Config, "create_predictor": create_predictor,
-           "seed": seed, "nnfa": nnfa, "build": _build.build, **tier}
+           "seed": seed, "nnfa": nnfa, "build": _build.build,
+           "kbuild": _build, "optim": optim, "lr": optim.lr, "clip": nn_clip,
+           "random": framework_random, "gpt_tiny": gpt_tiny, **tier}
     # the flight recorder's and the profiler's files go to a directory of
     # the run's own
     obs_dir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
@@ -4525,8 +4993,9 @@ def main():
 
     spec = draft_serving(torch, pkg, card)
     g13 = gpt13_training(torch, pkg, card)
+    api = training_api(torch, pkg, card)
 
-    print("phase 26: summary", flush=True)
+    print("phase 27: summary", flush=True)
     main_b4 = b4_rows[("bf16", "serving-like pos")]
     main_b3 = b3_rows["int8 data"]
     main_b3p = b3p_rows[("bf16 pages", "decode")]
@@ -4743,6 +5212,7 @@ def main():
           flush=True)
     print("  GPT-1.3B memory features: " + json.dumps(g13) + f" ({card})",
           flush=True)
+    print("  training API: " + json.dumps(api) + f" ({card})", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

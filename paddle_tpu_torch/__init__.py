@@ -16,9 +16,11 @@ Covered today: serving — GPT (``models.gpt``) and Llama
 (``models.llama``), ``generate`` greedy or sampled, slot, int8 slot and
 paged KV caches, the continuous-batching engine (sampling, n-gram
 speculation) and its HTTP server; training — the GPT and Llama steps:
-``flash_attention`` and ``cross_entropy`` on their kernels,
-``optimizer.AdamW`` / ``Adam`` (with f32 master weights), ``optimizer.lr``
-schedulers, ``nn.clip.ClipGradByGlobalNorm`` and ``jit.TrainStep``;
+``flash_attention`` and ``cross_entropy`` on their kernels, every
+optimizer of paddle_tpu (with f32 master weights), the ``optimizer.lr``
+schedulers, the ``nn.clip`` clips and ``jit.TrainStep`` with its
+windows (``scan_steps``), ``warm``, ``skip_step`` and
+``flush_accumulation``;
 sequence parallelism — ``distributed.init_mesh({"sp": n})`` (a
 single-controller mesh), ``ring_attention`` and ``ulysses_attention`` on
 the blockwise flash kernels, which GPT's and Llama's attention take under

@@ -9,9 +9,17 @@ seed. Dropout (``nn.functional.dropout`` and the attention-dropout branch)
 draws from these generators, never from torch's global RNG. The bits are
 not JAX's threefry bits, by design (ROADMAP.md §C): tests compare
 distributions, or rebuild the port's own mask from a reseeded generator.
+
+paddle_tpu's training step draws step n's randomness from ``fold_in(key,
+n)``, so what a step draws depends on its step count alone. The port's
+counterpart is ``Generator.folded(n)``: inside it every device's
+generator is a fresh one seeded from (seed, n), and the generators of
+before come back on exit. ``jit.TrainStep`` runs each step's forward and
+backward inside ``folded(step_count)``.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -25,6 +33,7 @@ class Generator:
 
     def __init__(self, seed: int = 0):
         self._lock = threading.Lock()
+        self._fold = None          # the seed inside ``folded``
         self.manual_seed(seed)
 
     def manual_seed(self, seed: int):
@@ -46,9 +55,26 @@ class Generator:
         with self._lock:
             gen = self._gens.get(dev)
             if gen is None:
-                gen = torch.Generator(device=dev).manual_seed(self._seed)
+                gen = torch.Generator(device=dev).manual_seed(
+                    self._seed if self._fold is None else self._fold)
                 self._gens[dev] = gen
             return gen
+
+    @contextlib.contextmanager
+    def folded(self, data: int):
+        """Inside: every device's generator is a fresh one seeded with
+        ``_fold_seed(seed, data)`` (created at first use, as outside); on
+        exit the generators of before come back, at the states they had.
+        What is drawn inside depends on the seed and ``data`` alone, not
+        on what was drawn before. One scope at a time (not nested)."""
+        with self._lock:
+            saved = self._gens, self._fold
+            self._gens, self._fold = {}, _fold_seed(self._seed, data)
+        try:
+            yield self
+        finally:
+            with self._lock:
+                self._gens, self._fold = saved
 
     def get_state(self):
         """``{"seed": s, "states": {device str: ByteTensor}}``."""
@@ -62,6 +88,23 @@ class Generator:
         self.manual_seed(state["seed"])
         for dev, st in state["states"].items():
             self.get(dev).set_state(st)
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(z: int) -> int:
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def _fold_seed(seed: int, data: int) -> int:
+    """A 63-bit seed from (``seed``, ``data``): splitmix64 of the mixed
+    seed xor ``data``, so neighbouring ``data`` give unrelated seeds."""
+    return _splitmix64(_splitmix64(int(seed) & _MASK64)
+                       ^ (int(data) & _MASK64)) >> 1
 
 
 _default = Generator(0)
