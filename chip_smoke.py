@@ -314,15 +314,46 @@ failure:
    three and a call (counters 8, 4, 4); eval_fn's logits equal model(ids)
    in eval mode, the training mode restored. BERT-base fine-tuning at
    phase 21's 32 x 128, dropout 0.1, Lamb + ClipGradByGlobalNorm +
-   LinearWarmup over PolynomialDecay: scan_steps(4) equals 4 calls by the
-   same rule (so the masks are equal); at lr 0 a run with a skip_step at step 2
+   LinearWarmup over PolynomialDecay: each of two scan_steps(4) equals 4
+   calls by the same rule, the spread the largest of three repeats of the
+   calls (so the masks are equal); at lr 0 a run with a skip_step at step 2
    gives the unfaulted run's losses at steps 3-5. Each of the nine A4
    optimizers, and SGD / Momentum under ClipGradByNorm /
    ClipGradByValue: 3 steps of gpt_tiny in f32 on the card against a CPU
    copy that takes the card's parameters, slots and gradients before each
    update (atol 1e-6 + rtol 1e-5; losses rel 1e-5), the card's updates
    under set_sync_debug_mode("error").
-27. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
+27. paddle.nn's layer system: nn.Transformer at its defaults
+   (Transformer-base: d_model 512, 8 heads, 6 + 6 layers, FFN 2048,
+   relu) with weight_attr=ParamAttr(initializer=XavierUniform()),
+   dropout 0.1 and attn_dropout 0.0, in user code (``seq2seq``: a shared
+   nn.Embedding over V 32000, a scaled sinusoidal position table, an
+   nn.Linear projection, one nn.Layer) built on the card (nn.Layer's
+   default: parameters and buffers checked there), bf16 through
+   Layer.astype: 1 warm and 5 TrainStep steps (AdamW multi_precision) at 32 x
+   128 source and 127 target tokens: losses finite and falling, the first
+   within 0.5 of ln 32000; B1 12 + 12 a step (encoder self-attention at
+   128 x 128, cross-attention at 127 x 128, launches by shape), all on the
+   tensor-core kernels (the decoder's masked self-attention takes the
+   plain branch), B2 1 + 1, no plain version; ms a step. Greedy decoding
+   of 32 tokens through decoder.gen_cache (Cache + StaticCache): B1 6 +
+   32 x 12 (1 x 1..32 and 1 x 128), ms a token; the tokens against the
+   cacheless decode on the same prefix with the causal mask (ties within
+   twice the logits' difference, which stays within TB_LOGIT_ATOL); and
+   before training, the cache on 32 random target tokens (teacher
+   forced) against the cacheless decoder, decoder outputs within
+   TB_HIDDEN_RMS, and its control, an empty Cache at every step, over
+   it. State:
+   save -> load -> set_state_dict into a fresh model gives the logits bit
+   for bit; astype("float32") and to("cpu") give the card's logits within
+   phase 7's rule. flash_attn_unpadded over packed lengths 37, 128, 5, 90,
+   causal and not, against SDPA a sequence at a time (B1) at LIM_BF16.
+   An f32 oracle (2 + 2 layers, d_model 64, one head) on the card by
+   default against a copy built after set_device("cpu"), by phase 7's
+   rule. Phase 3 holds B1 at these shapes (Sq 127 / Sk 128, Sq 1 / Sk 32
+   and 128; forward only at Sq 1 / Sk 1, 7 and 31) and B2 at N 4064 x V
+   32000.
+28. summary: one {"kernels": [...]} line (B1 and B5 twice: the bf16
    wgmma kernels of phases 8 and 14, and the f32 3xTF32 ones of phases 7
    and 13, their launches from the tensor-core counts; B3 five times:
    kv_slot_write and kv_paged_write with their launches in phases 6 and
@@ -335,9 +366,11 @@ failure:
    V 30522 with phase 20's; then phase 24's and 25's rows: B4 at the
    draft's shape and kv_paged_write into GPT-6.7B's pool with phase 24's
    launches, B1 at GPT-1.3B's D 128 and B2 on an f32 loss chunk with
-   phase 25's features-on launches), the serving lines of phases 15 and
-   16, phase 19's latency and phase 22's to 26's figures, the card line,
-   and last the {"ok": true, "device": {...}} line.
+   phase 25's features-on launches; then phase 27's: B1 at Transformer-
+   base's encoder, cross-attention and decode shapes and B2 at N 4064 x V
+   32000 with its launches), the serving lines of phases 15 and 16, phase
+   19's latency and phase 22's to 27's figures, the card line, and last
+   the {"ok": true, "device": {...}} line.
 
 ``python3 chip_smoke.py --sp-cards`` on a host with 4 or more cards runs
 phases 1 and 2 and then only phase 13's run with one shard on each of
@@ -349,11 +382,13 @@ their summary lines and no result line: copied into a checkout of an
 earlier commit, it measures that commit's serving the same way.
 """
 import atexit
+import collections
 import copy
 import dataclasses
 import gc
 import importlib
 import importlib.util
+import itertools
 import json
 import math
 import os
@@ -1213,16 +1248,20 @@ def check_all(torch, what, comparisons):
     return row
 
 
+def rms_ratio(torch, got, want):
+    """RMS(got - want) / RMS(want), in f32."""
+    g, w = got.float(), want.float()
+    return ((g - w).square().mean().sqrt() / w.square().mean().sqrt()).item()
+
+
 def check_rms(torch, what, comparisons, limit):
     """Fail unless RMS(got - want) <= limit * RMS(want) for each (name,
     got, want); prints the ratios and the max |err|."""
     parts, bad = [], []
     for name, got, want in comparisons:
-        g, w = got.float(), want.float()
-        ratio = ((g - w).square().mean().sqrt() /
-                 w.square().mean().sqrt()).item()
+        ratio = rms_ratio(torch, got, want)
         parts.append(f"{name} rms ratio {ratio:.3e} (max |err| "
-                     f"{(g - w).abs().max().item():.3e})")
+                     f"{(got.float() - want.float()).abs().max().item():.3e})")
         if not ratio <= limit:
             bad.append(name)
     print(f"  {what}: " + "; ".join(parts) + f"; limit {limit:.3g}",
@@ -1396,7 +1435,7 @@ B1_CASES = (("bfloat16", True, 0, 0), ("float32", True, 0, 0),
 
 def check_flash(torch, fa, flush, shape=(B_SLICE, NKV, L_SLICE, HD),
                 cases=B1_CASES, timing=("bfloat16", "float32"),
-                timed_causal=True, kinds=("fwd", "bwd"), simt=True):
+                timed_causal=True, kinds=("fwd", "bwd"), simt=True, sk=None):
     """Phase 3, B1: kernel vs plain at the training slice's shapes (or
     ``shape`` and ``cases``); bf16 (``LIM_BF16``) and f32 (``LIM_F32``)
     at D 64 take the tensor-core kernels, both held to the plain versions
@@ -1407,8 +1446,11 @@ def check_flash(torch, fa, flush, shape=(B_SLICE, NKV, L_SLICE, HD),
     ``timed_causal``): each dtype's kernels beside SDPA, the plain version
     and the bound of their route, and for f32 (with ``simt``) the SIMT
     kernels at the same inputs through their C entries (the design these
-    replace) and their 67-TFLOP/s bound."""
+    replace) and their 67-TFLOP/s bound. ``sk``: keys of their own
+    length (``shape``'s S is then the queries')."""
     B, H, S, D = shape
+    Sk = S if sk is None else sk
+    geo = f"{B}/{H}/{S}/{D}" if Sk == S else f"{B}/{H}/{S}x{Sk}/{D}"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     scale = 1.0 / D ** 0.5
@@ -1416,8 +1458,9 @@ def check_flash(torch, fa, flush, shape=(B_SLICE, NKV, L_SLICE, HD),
     errs = {}
     for dt_name, causal, q_off, k_off in cases:
         dt = getattr(torch, dt_name)
-        q, k, v, do = (torch.randn(B, H, S, D, device=dev,
-                                   generator=gen).to(dt) for _ in range(4))
+        q, k, v, do = (torch.randn(B, H, n, D, device=dev,
+                                   generator=gen).to(dt)
+                       for n in (S, Sk, Sk, S))
         reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
         out, lse = fa.flash_attn_fwd(q, k, v, causal, scale, q_off, k_off)
         out_p, lse_p = fa.flash_attn_fwd_plain(q, k, v, causal, scale, q_off,
@@ -1427,7 +1470,7 @@ def check_flash(torch, fa, flush, shape=(B_SLICE, NKV, L_SLICE, HD),
         grads_p = fa.flash_attn_bwd_plain(q, k, v, out_p, lse_p, do, causal,
                                           scale, q_off, k_off)
         torch.cuda.synchronize()
-        what = (f"flash_attn {dt} B/H/S/D={B}/{H}/{S}/{D} causal={causal} "
+        what = (f"flash_attn {dt} B/H/S/D={geo} causal={causal} "
                 f"q_off/k_off={q_off}/{k_off}")
         expect_path(what, fa, dt, D,
                     path_counts(fa.flash_attn_fwd, fa.flash_attn_bwd), 2)
@@ -1464,8 +1507,9 @@ def check_flash(torch, fa, flush, shape=(B_SLICE, NKV, L_SLICE, HD),
 
     rows = {}
     for dt in (getattr(torch, n) for n in timing):
-        q, k, v, do = (torch.randn(B, H, S, D, device=dev,
-                                   generator=gen).to(dt) for _ in range(4))
+        q, k, v, do = (torch.randn(B, H, n, D, device=dev,
+                                   generator=gen).to(dt)
+                       for n in (S, Sk, Sk, S))
         c = timed_causal
         out, lse = fa.flash_attn_fwd(q, k, v, c, scale)
         qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -1489,7 +1533,7 @@ def check_flash(torch, fa, flush, shape=(B_SLICE, NKV, L_SLICE, HD),
                 torch, fa, q, k, v, c, scale), flush)
             simt_ms["bwd"] = timed(torch, lambda: simt_flash_bwd(
                 torch, fa, q, k, v, lse, do, c, scale, out=out), flush)
-        fb, fo, bb, bo = b1_cost(B, H, S, S, D, c, 0, 0, q.element_size())
+        fb, fo, bb, bo = b1_cost(B, H, S, Sk, D, c, 0, 0, q.element_size())
         cost = {"fwd": (fb, fo), "bwd": (bb, bo)}
         peak = flash_peak(torch, fa, dt, D)
         label = "bf16" if dt == torch.bfloat16 else "f32"
@@ -1502,13 +1546,41 @@ def check_flash(torch, fa, flush, shape=(B_SLICE, NKV, L_SLICE, HD),
             extra = "" if simt_ms[kind] is None else (
                 f", SIMT kernel {simt_ms[kind]:.4f} ms (its bound "
                 f"{bound(nb, ops)[0]:.4f} ms)")
-            print(f"  flash_attn_{kind} {label} B/H/S/D={B}/{H}/{S}/{D} "
+            print(f"  flash_attn_{kind} {label} B/H/S/D={geo} "
                   f"{'causal' if c else 'non-causal'}: kernel "
                   f"{ms[kind]:.4f} ms, "
                   f"plain {plain[kind]:.4f} ms, sdpa {lib[kind]:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)"
                   f"{extra}", flush=True)
     return errs, rows
+
+
+def check_flash_decode_tails(torch, fa, shape, sks):
+    """Phase 3, B1 forward at one query row against ``sks`` keys (the
+    decode's self-attention at its short caches: tail tiles of the
+    64-row tensor-core tiles), non-causal, bf16, kernel against its plain
+    version at LIM_BF16 (out) and LIM_LSE (lse). Forward only: the decode
+    runs no backward, and at one key dq = dk = 0 exactly, so a backward
+    there is rounding noise on both sides. Returns {sk: max |err|}."""
+    B, H, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    errs = {}
+    for sk in sks:
+        q, k, v = (torch.randn(B, H, n, D, device="cuda",
+                               generator=gen).to(torch.bfloat16)
+                   for n in (1, sk, sk))
+        reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
+        out, lse = fa.flash_attn_fwd(q, k, v, False, D ** -0.5)
+        out_p, lse_p = fa.flash_attn_fwd_plain(q, k, v, False, D ** -0.5)
+        torch.cuda.synchronize()
+        what = (f"flash_attn_fwd bf16 B/H/S/D={B}/{H}/1x{sk}/{D} "
+                "non-causal")
+        expect_path(what, fa, torch.bfloat16, D,
+                    path_counts(fa.flash_attn_fwd, fa.flash_attn_bwd), 1)
+        row = check_all(torch, what, (("out", out, out_p, LIM_BF16),
+                                      ("lse", lse, lse_p, LIM_LSE)))
+        errs[sk] = max(row.values())
+    return errs
 
 
 def b5_cost(B, H, Sq, Sk, D, causal, q_off, k_off, elem):
@@ -2018,6 +2090,12 @@ def _count_plain(mods):
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     return counts, restore
+
+
+def busy_share(prof, wall_us):
+    """The device's busy share of a profiled window (None: not
+    measured)."""
+    return sum(r[0] for r in prof) / wall_us if prof else None
 
 
 def profile_window(torch, what, fn, top=10):
@@ -2781,7 +2859,7 @@ def ernie_serving(torch, pkg, card):
         prof, prof_wall = profile_window(torch, "one batch-1 Predictor.run",
                                          run_once, top=6)
         busy = sum(r[0] for r in prof)
-        out["busy_share"] = busy / prof_wall if prof else None
+        out["busy_share"] = busy_share(prof, prof_wall)
         print(f"  ERNIE-3.0-base Predictor.run, batch 1 x {ERNIE_S}, bf16: "
               f"p50 {out['p50']:.3f} ms, p99 {out['p99']:.3f} ms over "
               f"{ERNIE_RUNS} sequential runs (host clock, copy_from_cpu to "
@@ -3920,7 +3998,7 @@ def draft_window(torch, pkg, eng, url, prompts):
     torch.cuda.synchronize()
     ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
     n = len(spans["verify"])
-    busy = sum(r[0] for r in prof) / wall_us if prof else None
+    busy = busy_share(prof, wall_us)
     b4_us = sum(r[0] for r in prof if "mega_decode" in r[2])
     print(f"  healthz: speculative {e['speculative']}, spec_k {e['spec_k']}, "
           + ", ".join(f"{k} {e[k]}" for k in keys), flush=True)
@@ -4272,8 +4350,9 @@ def hold_runs(what, repeat, other, base_losses, repeat_losses,
               other_losses):
     """Hold a run through windows to the same steps as single calls:
     equal counters and scheduler, and losses, parameters and slots bit
-    for bit, or within the larger of four times a second calls' run's own
-    spread and 1e-7 on a parameter or slot (1e-6 of the loss's size).
+    for bit, or within the larger of four times the calls' own spread (a
+    second calls' run's, or the largest of several) and 1e-7 on a
+    parameter or slot (1e-6 of the loss's size).
     One repeat cannot prove the card deterministic: torch's CUDA
     embedding backward sums a row's duplicate indices with atomics, and
     BERT-base's token-type embedding (4,096 indices into 2 rows) differs
@@ -4296,8 +4375,8 @@ def hold_runs(what, repeat, other, base_losses, repeat_losses,
              f"{loss_other}) beyond {lim} ({lim_loss}); the calls' own "
              f"spread {repeat[0]} ({loss_repeat})")
     return (f"within the card's own spread (params/slots {other[0]:.2e} <= "
-            f"{lim:.2e}, losses {loss_other:.2e} <= {lim_loss:.2e}; a second "
-            f"run of the calls: {repeat[0]:.2e} / {loss_repeat:.2e})")
+            f"{lim:.2e}, losses {loss_other:.2e} <= {lim_loss:.2e}; the "
+            f"calls' own spread: {repeat[0]:.2e} / {loss_repeat:.2e})")
 
 
 def gpt_window(torch, pkg, card):
@@ -4429,8 +4508,7 @@ def gpt_window(torch, pkg, card):
     prof, prof_wall = profile_window(
         torch, f"window of {API_K} steps",
         lambda: step.scan_steps(API_K, windows[0], windows[0]))
-    busy = (None if not prof else
-            sum(r[0] for r in prof) / prof_wall)
+    busy = busy_share(prof, prof_wall)
 
     # gradient merge: windows of 3 that drift across the phase, a flush
     # (a no-op: 6 steps leave the cadence aligned), a skipped micro-step
@@ -4501,8 +4579,13 @@ def bert_window(torch, pkg, card):
     step.warm(*batch, scan_k=API_K)
     snap = snapshot(step)
     pkg["seed"](0)
-    runs = []                 # calls, a window, calls, a window
-    for use_window in (False, True, False, True):
+    # calls, a window, calls, a window, calls, calls: both windows are held
+    # to the first calls' run within four times the card's own spread,
+    # the largest of the three later calls' runs (one repeat can read ~0
+    # by chance: 3e-9 beside a window's 1.2e-7 on one H100 run)
+    order = (False, True, False, True, False, False)
+    runs = []
+    for use_window in order:
         restore(torch, step, snap)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4512,11 +4595,18 @@ def bert_window(torch, pkg, card):
             losses = torch.stack([step(*batch) for _ in range(API_K)])
         torch.cuda.synchronize()
         runs.append(([float(x) for x in losses], time.perf_counter() - t0,
-                     snapshot(step) if len(runs) < 3 else None))
-    how = hold_runs("BERT-base window",
-                    snapshot_diff(torch, runs[0][2], runs[2][2]),
-                    snapshot_diff(torch, runs[0][2], runs[1][2]),
-                    runs[0][0], runs[2][0], runs[1][0])
+                     snapshot(step)))
+    calls = [i for i, w in enumerate(order) if not w][1:]
+    spreads = [snapshot_diff(torch, runs[0][2], runs[i][2]) for i in calls]
+    repeat = (max(d for d, _ in spreads), all(ok for _, ok in spreads))
+    # each step's repeat loss farthest from the first run's
+    far = [max(vals, key=lambda x: abs(x - b)) for b, *vals in
+           zip(runs[0][0], *(runs[i][0] for i in calls))]
+    how = " / ".join(dict.fromkeys(
+        hold_runs("BERT-base window", repeat,
+                  snapshot_diff(torch, runs[0][2], runs[i][2]), runs[0][0],
+                  far, runs[i][0])
+        for i, w in enumerate(order) if w))
     window = runs[1][0]
     ms_call, ms_window = (runs[2][1] / API_K * 1e3, runs[3][1] / API_K * 1e3)
     print(f"  BERT-base, Lamb + global clip + warmup over polynomial decay: "
@@ -4640,6 +4730,526 @@ def training_api(torch, pkg, card):
     return out
 
 
+# phase 27: paddle.nn's Transformer at Transformer-base
+# (paddle_tpu/nn/layer/transformer.py:276: d_model 512, 8 heads, 6 + 6
+# layers, FFN 2048, relu) in user code over the ported nn API: one shared
+# embedding over V 32000 (the order of WMT14 en-de's shared BPE
+# vocabulary), scaled by sqrt(d_model), plus a sinusoidal position table,
+# and an output projection. Trained at 32 x 128 source tokens and 128
+# target tokens (the decoder reads the first 127 and predicts the last
+# 127), then decoded greedily for 32 tokens through gen_cache. A token of
+# the cached decode that differs from the cacheless one (teacher-forced on
+# the same prefix, with the causal mask) is a tie only where the
+# cacheless top-2 margin is within twice the largest |logit| difference of
+# the two decodes, which must itself stay within TB_LOGIT_ATOL: in bf16
+# the two run their GEMMs and attention at other shapes, and this phase's
+# sound runs read 0.0156 (one bf16 ulp of a logit in [2, 4)); the limit
+# is four such ulps. After 6 steps on random tokens the decoder's outputs
+# hardly depend on their context (its greedy tokens repeat; on a CPU
+# rehearsal a broken cache moved them no more than bf16 rounding does),
+# so that check cannot see a broken cache. The cache is held on its own
+# first, on the model as built: TB_DECODE random target tokens, teacher
+# forced, against the cacheless decoder, the decoder outputs' RMS ratio
+# within TB_HIDDEN_RMS (phase 14's bf16 limit), and the same with an
+# empty Cache at every step, the check's control, over it.
+TB_V, TB_B, TB_S, TB_DECODE, TB_BOS = 32000, 32, 128, 32, 1
+TB_D, TB_H, TB_LAYERS, TB_FFN = 512, 8, 6, 2048
+TB_STEPS, TB_LR = 5, 1e-3
+TB_LOGIT_ATOL = 0.0625
+TB_HIDDEN_RMS = RMS_SP_BF16
+TB_UNPADDED_LENS = (37, 128, 5, 90)
+# phase 3's forward-only rows at one query row against the decode's
+# shorter caches (beside its 1 x 32 and 1 x 128 rows)
+TB_TAIL_SKS = (1, 7, 31)
+# the f32 oracle: 2 + 2 layers at d_model 64, one head (head dim 64: B1's
+# 3xTF32 kernels), FFN 256, V 1000, batch 4 x 48 source, 33 target tokens
+TB_ORACLE = dict(vocab=1000, d_model=64, nhead=1, num_encoder_layers=2,
+                 num_decoder_layers=2, dim_feedforward=256, dropout=0.0)
+
+
+def seq2seq(torch, nn, vocab, d_model, max_len=2 * TB_S, **kw):
+    """User code over the ported paddle.nn API: a shared ``nn.Embedding``
+    (N(0, d_model^-1/2) through a ParamAttr) scaled by sqrt(d_model) plus
+    a sinusoidal position table (a non-persistable buffer), then
+    ``nn.Transformer(d_model, **kw)`` and an ``nn.Linear`` projection to
+    the vocabulary, in one ``nn.Layer``."""
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.d_model = d_model
+            self.embedding = nn.Embedding(vocab, d_model, weight_attr=(
+                nn.ParamAttr(initializer=nn.initializer.Normal(
+                    0.0, d_model ** -0.5))))
+            dev = self.embedding.weight.device
+            pos = torch.arange(max_len, dtype=torch.float32,
+                               device=dev)[:, None]
+            div = torch.exp(torch.arange(0, d_model, 2, device=dev).float()
+                            * (-math.log(10000.0) / d_model))
+            table = torch.zeros(max_len, d_model, device=dev)
+            table[:, 0::2] = torch.sin(pos * div)
+            table[:, 1::2] = torch.cos(pos * div)
+            self.register_buffer("pos_table", table, persistable=False)
+            self.transformer = nn.Transformer(d_model, **kw)
+            self.dropout = nn.Dropout(kw.get("dropout", 0.1))
+            self.project = nn.Linear(d_model, vocab)
+
+        def embed(self, ids, offset=0):
+            x = self.embedding(ids) * self.d_model ** 0.5
+            return self.dropout(
+                x + self.pos_table[offset:offset + ids.shape[1]])
+
+        def forward(self, src, tgt):
+            mask = nn.Transformer.generate_square_subsequent_mask(
+                tgt.shape[1]).to(src.device)
+            return self.project(self.transformer(
+                self.embed(src), self.embed(tgt), tgt_mask=mask))
+    return Seq2Seq()
+
+
+def b1_tally(fa, shapes):
+    """Count B1's launches by (kind, Sq, Sk) in ``shapes``: the wrappers
+    check every launch's shapes through ``fa._check`` first, so this
+    wraps that (the launch counters move as ever); returns the
+    restore."""
+    check = fa._check
+
+    def tally(op, q, k, v):
+        out = check(op, q, k, v)
+        if op in ("flash_attn_fwd", "flash_attn_bwd"):
+            shapes[(op[-3:], q.shape[2], k.shape[2])] += 1
+        return out
+    fa._check = tally
+
+    def restore():
+        fa._check = check
+    return restore
+
+
+def tbase_training(torch, pkg, model, src, tgt_in, labels):
+    """Phase 27's training: 1 warm step and TB_STEPS through TrainStep
+    (AdamW multi_precision); B1 12 + 12 a step (6 encoder self-attentions
+    at 128 x 128 and 6 cross-attentions at 127 x 128, all on the
+    tensor-core kernels; the decoder's self-attention carries the causal
+    mask and takes the plain masked branch), B2 1 + 1 a step, no plain
+    version; one more step profiled. Returns (losses, ms a step, shapes,
+    the profiled step's busy share)."""
+    F, fa, ce = pkg["F"], pkg["fa"], pkg["ce"]
+
+    def loss_fn(logits, lab):
+        return F.cross_entropy(logits.reshape(-1, TB_V), lab.reshape(-1))
+    opt = pkg["AdamW"](learning_rate=TB_LR, parameters=model.parameters(),
+                       multi_precision=True)
+    step = pkg["TrainStep"](model, loss_fn, opt, n_inputs=2)
+    losses = [step(src, tgt_in, labels)]          # warm
+    torch.cuda.synchronize()
+    shapes = collections.Counter()
+    reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
+    ce.ce_fwd.launches = ce.ce_bwd.launches = 0
+    plain, restore_plain = _count_plain([fa, ce])
+    restore_tally = b1_tally(fa, shapes)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(TB_STEPS):
+            losses.append(step(src, tgt_in, labels))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore_tally()
+        restore_plain()
+    S, T = src.shape[1], tgt_in.shape[1]
+    want = collections.Counter({
+        (kind, sq, sk): TB_LAYERS * TB_STEPS
+        for kind in ("fwd", "bwd") for sq, sk in ((S, S), (T, S))})
+    n = 2 * TB_LAYERS * TB_STEPS
+    counts = (fa.flash_attn_fwd.launches, fa.flash_attn_bwd.launches,
+              ce.ce_fwd.launches, ce.ce_bwd.launches)
+    if shapes != want or counts != (n, n, TB_STEPS, TB_STEPS) or \
+            path_counts(fa.flash_attn_fwd, fa.flash_attn_bwd) != (2 * n, 0) \
+            or any(plain.values()):
+        fail(f"phase 27 training: B1 launches by shape {dict(shapes)} != "
+             f"{dict(want)}, launches (B1 fwd, bwd, B2 fwd, bwd) {counts}, "
+             f"paths {path_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)}, "
+             f"plain calls {plain}")
+    vals = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in vals):
+        fail(f"phase 27: non-finite loss in {vals}")
+    if not abs(vals[0] - math.log(TB_V)) <= 0.5:
+        fail(f"phase 27: first loss {vals[0]} not within 0.5 of "
+             f"ln {TB_V} = {math.log(TB_V):.4f}")
+    if not vals[-1] < vals[0]:
+        fail(f"phase 27: the last loss is not below the first: {vals}")
+    prof, prof_wall = profile_window(torch, "Transformer-base step",
+                                     lambda: step(src, tgt_in, labels))
+    del step, opt
+    return vals, wall / TB_STEPS * 1e3, shapes, busy_share(prof, prof_wall)
+
+
+def pct(share):
+    return "not measured" if share is None else f"{100 * share:.1f} %"
+
+
+def tbase_decode(torch, pkg, model, src, forced=None, fresh=False):
+    """Incremental decoding of TB_DECODE tokens: the encoder once, then
+    ``decoder.gen_cache(memory)`` (an incremental Cache and a StaticCache
+    a layer) and one token a step: greedy, or the tokens ``forced`` [B,
+    TB_DECODE] (teacher forcing); ``fresh``: a new, empty cache at every
+    step (the cache check's control). Returns (tokens [B, 1 + TB_DECODE]
+    with BOS first, the step logits [B, TB_DECODE, V], the decoder's
+    outputs [B, TB_DECODE, d_model], memory)."""
+    nn = pkg["nn"]
+    tr = model.transformer
+    with torch.no_grad():
+        memory = tr.encoder(model.embed(src))
+        cache = tr.decoder.gen_cache(memory)
+        if not (isinstance(cache[0][0], nn.MultiHeadAttention.Cache) and
+                isinstance(cache[0][1], nn.MultiHeadAttention.StaticCache)
+                and len(cache) == TB_LAYERS):
+            fail("phase 27: gen_cache gave "
+                 f"{[type(c).__name__ for c in cache[0]]} x {len(cache)}")
+        ys = torch.full((src.shape[0], 1), TB_BOS, dtype=torch.int64,
+                        device=src.device)
+        steps, hs = [], []
+        for t in range(TB_DECODE):
+            if fresh:
+                cache = tr.decoder.gen_cache(memory)
+            tok = ys[:, -1:] if forced is None else forced[:, t:t + 1]
+            h, cache = tr.decoder(model.embed(tok, t), memory, cache=cache)
+            lg = model.project(h[:, -1])
+            steps.append(lg)
+            hs.append(h[:, -1])
+            ys = torch.cat([ys, lg.argmax(-1, keepdim=True)], 1)
+    return ys, torch.stack(steps, 1), torch.stack(hs, 1), memory
+
+
+def cacheless(torch, pkg, model, tokens, memory):
+    """The decoder over ``tokens`` [B, T] at once with the causal mask:
+    (outputs [B, T, d_model], f32 logits [B, T, V])."""
+    with torch.no_grad():
+        mask = pkg["nn"].Transformer.generate_square_subsequent_mask(
+            tokens.shape[1]).to(tokens.device)
+        h = model.transformer.decoder(model.embed(tokens), memory, mask)
+        return h, model.project(h).float()
+
+
+def tbase_cache_check(torch, pkg, model, src, forced):
+    """The cache's own check, on the model as built (in eval mode) and
+    random target tokens: ``forced`` decoded through the cache against
+    the cacheless decoder on the same tokens, RMS ratio of the decoder
+    outputs within TB_HIDDEN_RMS; and its control, the same with an empty
+    Cache at every step, over TB_HIDDEN_RMS. Returns (ratio, control's
+    ratio, control's max |logit diff|)."""
+    _, lg_c, h_c, memory = tbase_decode(torch, pkg, model, src,
+                                        forced=forced)
+    _, lg_b, h_b, _ = tbase_decode(torch, pkg, model, src, forced=forced,
+                                   fresh=True)
+    h_full, lg_full = cacheless(torch, pkg, model, forced, memory)
+    ratio, broken = rms_ratio(torch, h_c, h_full), rms_ratio(torch, h_b,
+                                                             h_full)
+    broken_lg = (lg_b.float() - lg_full).abs().max().item()
+    if not ratio <= TB_HIDDEN_RMS < broken:
+        fail(f"phase 27: teacher-forced decode through the cache vs "
+             f"cacheless: decoder outputs' RMS ratio {ratio} (limit "
+             f"{TB_HIDDEN_RMS}); with an empty Cache at every step "
+             f"{broken}, which must be over the limit")
+    return ratio, broken, broken_lg
+
+
+def tbase_eval(torch, pkg, model, src):
+    """Phase 27's eval: a warm decode, then the counted and timed one (B1
+    6 + TB_DECODE x 12 forward launches on the tensor-core kernels: the
+    encoder's 6 at 128 x 128, then a step's 6 self-attentions at 1 x t and
+    6 cross-attentions at 1 x 128; no plain version), held to the
+    cacheless decode on the same prefix (TB_LOGIT_ATOL, ties); one more
+    decode profiled. Returns (ms a token, shapes, the largest |logit|
+    difference, ties, the profiled decode's busy share, the largest
+    cacheless |logit|)."""
+    fa, ce = pkg["fa"], pkg["ce"]
+    model.eval()
+    tbase_decode(torch, pkg, model, src)
+    torch.cuda.synchronize()
+    shapes = collections.Counter()
+    reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
+    plain, restore_plain = _count_plain([fa, ce])
+    restore_tally = b1_tally(fa, shapes)
+    try:
+        t0 = time.perf_counter()
+        ys, lg_cached, _, memory = tbase_decode(torch, pkg, model, src)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore_tally()
+        restore_plain()
+    S = src.shape[1]
+    want = collections.Counter({("fwd", S, S): TB_LAYERS,
+                                ("fwd", 1, S): TB_LAYERS * TB_DECODE})
+    for t in range(1, TB_DECODE + 1):
+        want[("fwd", 1, t)] += TB_LAYERS
+    n = TB_LAYERS + 2 * TB_LAYERS * TB_DECODE
+    if shapes != want or fa.flash_attn_fwd.launches != n or \
+            fa.flash_attn_bwd.launches or \
+            path_counts(fa.flash_attn_fwd, fa.flash_attn_bwd) != (n, 0) or \
+            any(plain.values()):
+        fail(f"phase 27 decode: B1 launches by shape {dict(shapes)} != "
+             f"{dict(want)}, launches {fa.flash_attn_fwd.launches} + "
+             f"{fa.flash_attn_bwd.launches}, paths "
+             f"{path_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)}, plain "
+             f"calls {plain}")
+    _, lg_full = cacheless(torch, pkg, model, ys[:, :-1], memory)
+    delta = (lg_cached.float() - lg_full).abs().max().item()
+    top2 = lg_full.topk(2, -1).values
+    margin = top2[..., 0] - top2[..., 1]
+    differ = ys[:, 1:] != lg_full.argmax(-1)
+    ties = int(differ.sum())
+    if not delta <= TB_LOGIT_ATOL:
+        fail(f"phase 27: cached vs cacheless logits differ by {delta} > "
+             f"{TB_LOGIT_ATOL}")
+    if bool((differ & (margin > 2 * delta)).any()):
+        fail(f"phase 27: cached tokens differ from the cacheless decode "
+             f"beyond ties ({ties} differ; margins "
+             f"{margin[differ].tolist()[:8]} vs 2 x {delta:.4f})")
+    if ties:
+        at = differ.nonzero().tolist()
+        steps = sorted(collections.Counter(t for _, t in at).items())
+        print(f"  ties at (row, step) {at[:8]}{' ...' if ties > 8 else ''}: "
+              f"by step {steps}, cacheless top-2 margins up to "
+              f"{margin[differ].max().item():.4f}", flush=True)
+    prof, prof_wall = profile_window(
+        torch, f"greedy decode of {TB_DECODE} tokens",
+        lambda: tbase_decode(torch, pkg, model, src))
+    return (wall / TB_DECODE * 1e3, shapes, delta, ties,
+            busy_share(prof, prof_wall), lg_full.abs().max().item())
+
+
+def tbase_state(torch, pkg, model, src, tgt_in, build):
+    """save -> load -> set_state_dict into a freshly built model: equal
+    logits bit for bit; then astype("float32") on the card and to("cpu"):
+    logits on 4 rows within phase 7's rule (max |diff| / max |logit| <=
+    1e-4). Returns (file MB, f32 worst ratio)."""
+    model.eval()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "transformer_base.pdparams")
+        pkg["save"](model.state_dict(), path)
+        mb = os.path.getsize(path) / 2**20
+        state = pkg["pload"](path)
+    fresh = build().astype("bfloat16")
+    missing, unexpected = fresh.set_state_dict(state)
+    del state
+    fresh.eval()
+    with torch.no_grad():
+        a, b = model(src, tgt_in), fresh(src, tgt_in)
+    if missing or unexpected or a.dtype != torch.bfloat16 or \
+            not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+        fail(f"phase 27: save/load/set_state_dict: missing {missing}, "
+             f"unexpected {unexpected}, logits equal "
+             f"{torch.equal(a, b)}")
+    del fresh, a, b
+    model.astype("float32")
+    sub_src, sub_tgt = src[:4], tgt_in[:4]
+    with torch.no_grad():
+        card_lg = model(sub_src, sub_tgt).cpu()
+        model.to("cpu")
+        cpu_lg = model(sub_src.cpu(), sub_tgt.cpu())
+    if model.project.weight.device.type != "cpu" or \
+            cpu_lg.dtype != torch.float32:
+        fail("phase 27: astype / to('cpu') left the model on "
+             f"{model.project.weight.device} in {cpu_lg.dtype}")
+    ratio = ((card_lg - cpu_lg).abs().max() / cpu_lg.abs().max()).item()
+    if not ratio <= 1e-4:
+        fail(f"phase 27: f32 logits card vs CPU: max|diff| / max|logit| "
+             f"{ratio} > 1e-4")
+    return mb, ratio
+
+
+def tbase_unpadded(torch, pkg):
+    """flash_attn_unpadded on the card over packed ragged lengths,
+    causal and not, bf16, 8 heads of 64: against
+    scaled_dot_product_attention one sequence at a time (B1, 4 launches
+    on the tensor-core kernels) at LIM_BF16. Returns {causal: max err}."""
+    F, fa = pkg["F"], pkg["fa"]
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    lens = TB_UNPADDED_LENS
+    cu = torch.tensor([0] + list(itertools.accumulate(lens)),
+                      dtype=torch.int32, device="cuda")
+    q, k, v = (torch.randn(int(cu[-1]), TB_H, TB_D // TB_H, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    errs = {}
+    for causal in (False, True):
+        out, none = F.flash_attn_unpadded(q, k, v, cu, cu, max(lens),
+                                          max(lens), (TB_D // TB_H) ** -0.5,
+                                          causal=causal)
+        reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
+        per = [F.scaled_dot_product_attention(
+            q[s:e][None], k[s:e][None], v[s:e][None], is_causal=causal)[0]
+            for s, e in zip(cu[:-1].tolist(), cu[1:].tolist())]
+        torch.cuda.synchronize()
+        if none is not None or path_counts(fa.flash_attn_fwd,
+                                           fa.flash_attn_bwd) != (4, 0):
+            fail(f"phase 27 unpadded: second result {none}, B1 paths "
+                 f"{path_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)}")
+        errs[causal] = check_all(
+            torch, f"flash_attn_unpadded lengths {list(lens)} causal="
+            f"{causal} vs SDPA a sequence at a time",
+            (("out", out, torch.cat(per), LIM_BF16),))["out"]
+    return errs
+
+
+def tbase_oracle(torch, pkg):
+    """The small f32 oracle: TB_ORACLE on the card against a CPU copy of
+    its weights (set_state_dict), one loss and backward, phase 7's rule
+    (loss rel 1e-5, every gradient max|diff| / max|g| 1e-4; a
+    k_proj.bias's, zero in exact arithmetic, over its k_proj.weight's
+    max|g|); B1 2 + 2 forward and 4 backward on the 3xTF32 kernels, B2
+    1 + 1."""
+    nn, F, fa, ce, np = pkg["nn"], pkg["F"], pkg["fa"], pkg["ce"], pkg["np"]
+    kw = dict(TB_ORACLE)
+    vocab = kw.pop("vocab")
+    attr = nn.ParamAttr(initializer=nn.initializer.XavierUniform())
+    card = seq2seq(torch, nn, vocab, weight_attr=attr, **kw)
+    pkg["set_device"]("cpu")
+    try:
+        cpu = seq2seq(torch, nn, vocab, weight_attr=attr, **kw)
+    finally:
+        pkg["set_device"](None)
+    if {p.device.type for p in card.parameters()} != {"cuda"} or \
+            {p.device.type for p in cpu.parameters()} != {"cpu"}:
+        fail("phase 27 oracle: the default build is not on the card, or "
+             "set_device('cpu')'s not on the CPU")
+    if cpu.set_state_dict(card.state_dict()) != ([], []):
+        fail("phase 27 oracle: the CPU copy's state dict differs")
+    rs = np.random.RandomState(28)
+    src = torch.from_numpy(rs.randint(0, vocab, (4, 48)))
+    tgt = torch.from_numpy(rs.randint(0, vocab, (4, 33)))
+    reset_counts(fa.flash_attn_fwd, fa.flash_attn_bwd)
+    ce.ce_fwd.launches = ce.ce_bwd.launches = 0
+    losses, grads = [], []
+    for m in (card, cpu):
+        m.train()
+        dev = m.project.weight.device
+        lg = m(src.to(dev), tgt[:, :-1].to(dev))
+        loss = F.cross_entropy(lg.reshape(-1, vocab),
+                               tgt[:, 1:].reshape(-1).to(dev))
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    paths = {w.__name__: (w.tc_launches, w.simt_launches)
+             for w in (fa.flash_attn_fwd, fa.flash_attn_bwd)}
+    want = {"flash_attn_fwd": (4, 0), "flash_attn_bwd": (4, 0)}
+    if paths != want or (ce.ce_fwd.launches, ce.ce_bwd.launches) != (1, 1):
+        fail(f"phase 27 oracle: B1 (tensor-core, SIMT) {paths} != {want} "
+             f"or B2 {ce.ce_fwd.launches} + {ce.ce_bwd.launches} != 1 + 1")
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    worst, worst_name = 0.0, ""
+    for n, g in grads[1].items():
+        # a bias on the keys adds one constant to every logit of a row,
+        # which the softmax removes: its gradient is zero but for rounding
+        # on both sides, so it is measured against its layer's
+        # k_proj.weight gradient, which carries the same dK
+        ref = grads[1][n[:-len("bias")] + "weight"] \
+            if n.endswith("k_proj.bias") else g
+        r = ((grads[0][n].cpu() - g).abs().max()
+             / max(ref.abs().max().item(), 1e-30)).item()
+        if r > worst:
+            worst, worst_name = r, n
+    if not (rel <= 1e-5 and worst <= 1e-4):
+        fail(f"phase 27 oracle: loss card {losses[0]} cpu {losses[1]} (rel "
+             f"{rel:.2e}); worst grad {worst_name} {worst:.2e}")
+    return {"loss_rel": rel, "worst_grad": worst, "worst_grad_name":
+            worst_name, "params": len(grads[1])}
+
+
+def transformer_base(torch, pkg, card):
+    """Phase 27: paddle.nn's layer system and nn.Transformer at
+    Transformer-base on the card (module constants). Returns the numbers
+    the summary takes."""
+    nn = pkg["nn"]
+    print(f"phase 27: paddle.nn.Transformer at Transformer-base (d_model "
+          f"{TB_D}, {TB_H} heads, {TB_LAYERS} + {TB_LAYERS} layers, FFN "
+          f"{TB_FFN}), shared embedding V {TB_V}, bf16 AdamW "
+          f"multi_precision, batch {TB_B} x {TB_S} source x {TB_S} target "
+          f"tokens", flush=True)
+    release(torch)
+    t_phase = time.perf_counter()
+    attr = nn.ParamAttr(initializer=nn.initializer.XavierUniform())
+
+    def build():
+        return seq2seq(torch, nn, TB_V, TB_D, weight_attr=attr, dropout=0.1,
+                       attn_dropout=0.0)
+    pkg["seed"](27)
+    model = build()                 # nn.Layer builds on the card by default
+    if {p.device.type for p in model.parameters()} | \
+            {b.device.type for b in model.buffers()} != {"cuda"}:
+        fail("phase 27: nn.Layer's default build is not on the card")
+    tr = model.transformer
+    geo = (tr.d_model, tr.nhead, len(tr.encoder.layers),
+           len(tr.decoder.layers),
+           tr.encoder.layers[0].linear1.weight.shape[1],
+           tr.encoder.layers[0].activation.__name__)
+    if geo != (TB_D, TB_H, TB_LAYERS, TB_LAYERS, TB_FFN, "relu"):
+        fail(f"phase 27: nn.Transformer's defaults gave {geo}")
+    model.astype("bfloat16")
+    n_params = sum(p.numel() for p in model.parameters())
+    rs = pkg["np"].random.RandomState(27)
+    src = torch.from_numpy(rs.randint(2, TB_V, (TB_B, TB_S))).cuda()
+    tgt = torch.from_numpy(rs.randint(2, TB_V, (TB_B, TB_S))).cuda()
+    tgt_in, labels = tgt[:, :-1], tgt[:, 1:]
+    out = {"params": n_params}
+    model.eval()
+    (out["forced_hidden_rms"], out["broken_cache_hidden_rms"],
+     out["broken_cache_logit_delta"]) = tbase_cache_check(
+        torch, pkg, model, src, tgt_in[:, :TB_DECODE])
+    model.train()
+    print(f"  the cache, before training, on {TB_DECODE} random target "
+          f"tokens (teacher forced) vs the cacheless decoder: decoder "
+          f"outputs' RMS ratio "
+          f"{out['forced_hidden_rms']:.2e} (limit {TB_HIDDEN_RMS:.3g}); "
+          f"the control, an empty Cache at every step: "
+          f"{out['broken_cache_hidden_rms']:.2e} (max |logit diff| "
+          f"{out['broken_cache_logit_delta']:.4f})", flush=True)
+    losses, out["train_ms_step"], train_shapes, out["train_busy"] = \
+        tbase_training(torch, pkg, model, src, tgt_in, labels)
+    out["losses"] = losses
+    print(f"  training: losses {['%.4f' % x for x in losses]} (warm step "
+          f"first; ln {TB_V} = {math.log(TB_V):.4f}); "
+          f"{out['train_ms_step']:.2f} ms/step ({TB_STEPS} steps, "
+          f"{n_params / 1e6:.1f} M parameters); B1 launches by (kind, Sq, "
+          f"Sk) {dict(train_shapes)}, all on the tensor-core kernels; "
+          f"B2 1 + 1 a step; no plain version; a profiled step's device "
+          f"busy share {pct(out['train_busy'])} ({card})", flush=True)
+    (out["decode_ms_token"], dec_shapes, out["logit_delta"], out["ties"],
+     out["decode_busy"], out["max_logit"]) = tbase_eval(torch, pkg, model,
+                                                        src)
+    print(f"  greedy decode of {TB_DECODE} tokens through gen_cache: "
+          f"{out['decode_ms_token']:.3f} ms a token (the encoder's pass "
+          f"included); B1 forward {sum(dec_shapes.values())} = "
+          f"{TB_LAYERS} + {TB_DECODE} x {2 * TB_LAYERS} on the tensor-core "
+          f"kernels; vs the cacheless decode: max |logit diff| "
+          f"{out['logit_delta']:.4f} (limit {TB_LOGIT_ATOL}; largest "
+          f"|logit| {out['max_logit']:.3f}), "
+          f"{out['ties']} of {TB_B * TB_DECODE} tokens differ, each a tie; "
+          f"a profiled decode's device busy share "
+          f"{pct(out['decode_busy'])} ({card})", flush=True)
+    out["state_mb"], out["f32_ratio"] = tbase_state(
+        torch, pkg, model, src, tgt_in, build)
+    print(f"  state: save ({out['state_mb']:.1f} MB) -> load -> "
+          f"set_state_dict into a fresh model: logits equal bit for bit; "
+          f"astype('float32') and to('cpu'): card vs CPU max|diff| / "
+          f"max|logit| {out['f32_ratio']:.2e} (tol 1e-4)", flush=True)
+    del model
+    release(torch)
+    out["unpadded_err"] = tbase_unpadded(torch, pkg)
+    out["oracle"] = tbase_oracle(torch, pkg)
+    print(f"  f32 oracle (2 + 2 layers, d_model 64): loss rel "
+          f"{out['oracle']['loss_rel']:.2e} (tol 1e-5), worst grad "
+          f"max|diff|/max|g| {out['oracle']['worst_grad']:.2e} "
+          f"({out['oracle']['worst_grad_name']}; tol 1e-4) over "
+          f"{out['oracle']['params']} parameters", flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 27 took {out['wall_s']:.1f} s", flush=True)
+    release(torch)
+    return out, train_shapes, dec_shapes
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4673,6 +5283,8 @@ def main():
         from paddle_tpu_torch.models import gpt_tiny
         from paddle_tpu_torch.nn import clip as nn_clip
         from paddle_tpu_torch.optimizer import AdamW
+        import paddle_tpu_torch
+        from paddle_tpu_torch import nn as ptnn
         # the module's name is shadowed by its flash_attention function
         nnfa = importlib.import_module(
             "paddle_tpu_torch.nn.functional.flash_attention")
@@ -4700,7 +5312,10 @@ def main():
            "Config": Config, "create_predictor": create_predictor,
            "seed": seed, "nnfa": nnfa, "build": _build.build,
            "kbuild": _build, "optim": optim, "lr": optim.lr, "clip": nn_clip,
-           "random": framework_random, "gpt_tiny": gpt_tiny, **tier}
+           "random": framework_random, "gpt_tiny": gpt_tiny, "nn": ptnn,
+           "F": ptnn.functional, "save": paddle_tpu_torch.save,
+           "pload": paddle_tpu_torch.load,
+           "set_device": paddle_tpu_torch.set_device, **tier}
     # the flight recorder's and the profiler's files go to a directory of
     # the run's own
     obs_dir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
@@ -4841,6 +5456,28 @@ def main():
                                           torch.bfloat16)],
                                   timing=("float32", "float32->bfloat16"),
                                   timing_n=G13_CHUNK)
+    print("  phase 27's shapes (Transformer-base, bf16, 8 heads of 64):",
+          flush=True)
+    nc = (("bfloat16", False, 0, 0),)
+    tb_dh = TB_D // TB_H
+    b1t_errs, b1t_rows = {}, {}
+    # (key, query rows, key rows, kinds): the encoder's self-attention and
+    # the decoder's cross-attention in training; at decode the last
+    # self-attention (1 x 32) and every cross-attention (1 x 128)
+    for key, sq, sk, kinds in (("enc", TB_S, TB_S, ("fwd", "bwd")),
+                               ("cross", TB_S - 1, TB_S, ("fwd", "bwd")),
+                               ("dec_self", 1, TB_DECODE, ("fwd",)),
+                               ("dec_cross", 1, TB_S, ("fwd",))):
+        b1t_errs[key], b1t_rows[key] = check_flash(
+            torch, fa, flush, shape=(TB_B, TB_H, sq, tb_dh), cases=nc,
+            timing=("bfloat16",), timed_causal=False, kinds=kinds,
+            simt=False, sk=sk)
+    b1t_tails = check_flash_decode_tails(torch, fa, (TB_B, TB_H, tb_dh),
+                                         TB_TAIL_SKS)
+    tb_n = TB_B * (TB_S - 1)               # phase 27's loss rows
+    b2t_errs, b2t_rows = check_ce(torch, ce, flush, V=TB_V,
+                                  cases=[(tb_n, torch.bfloat16, None)],
+                                  timing=("bfloat16",), timing_n=tb_n)
     del flush
     torch.cuda.empty_cache()
 
@@ -4994,8 +5631,9 @@ def main():
     spec = draft_serving(torch, pkg, card)
     g13 = gpt13_training(torch, pkg, card)
     api = training_api(torch, pkg, card)
+    tbase, tb_train, tb_dec = transformer_base(torch, pkg, card)
 
-    print("phase 27: summary", flush=True)
+    print("phase 28: summary", flush=True)
     main_b4 = b4_rows[("bf16", "serving-like pos")]
     main_b3 = b3_rows["int8 data"]
     main_b3p = b3p_rows[("bf16 pages", "decode")]
@@ -5202,6 +5840,53 @@ def main():
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    # phase 27's shapes: B1 at Transformer-base's encoder self-attention
+    # and cross-attention (training, and the encoder's pass at decode),
+    # its decode steps (the self-attention row timed at 1 x 32, launched
+    # at 1 x 1..32, its error the largest of 1 x 32 and the forward-only
+    # tails at 1 x TB_TAIL_SKS; every cross-attention at 1 x 128), and B2
+    # on its loss
+    for name, key, kind, n in (
+            ("flash_attn_fwd_tbase_enc", "enc", "fwd",
+             tb_train[("fwd", TB_S, TB_S)]
+             + tb_dec[("fwd", TB_S, TB_S)]),
+            ("flash_attn_bwd_tbase_enc", "enc", "bwd",
+             tb_train[("bwd", TB_S, TB_S)]),
+            ("flash_attn_fwd_tbase_cross", "cross", "fwd",
+             tb_train[("fwd", TB_S - 1, TB_S)]),
+            ("flash_attn_bwd_tbase_cross", "cross", "bwd",
+             tb_train[("bwd", TB_S - 1, TB_S)]),
+            ("flash_attn_fwd_tbase_decode_self", "dec_self", "fwd",
+             sum(c for (k, sq, sk), c in tb_dec.items()
+                 if k == "fwd" and sq == 1 and sk <= TB_DECODE)),
+            ("flash_attn_fwd_tbase_decode_cross", "dec_cross", "fwd",
+             tb_dec[("fwd", 1, TB_S)])):
+        err = dict(b1t_errs[key][(torch.bfloat16, False, 0)])
+        if key == "dec_self":            # and the shorter caches' tails
+            err["out"] = max([err["out"]] + list(b1t_tails.values()))
+        row = b1t_rows[key][("bf16", kind)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/"
+                      "flash_attention_sm90.cu",
+            "replaces": b1_src, "launches": n,
+            "max_abs_err": max(err["out"], err["lse"]) if kind == "fwd"
+            else max(err["dq"], err["dk"], err["dv"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    b2t = b2t_errs[(tb_n, torch.bfloat16, None)]
+    for name, kind, replaces, err in (
+            ("ce_fwd_tbase_v32000", "fwd", 172, max(b2t["per"], b2t["lse"])),
+            ("ce_bwd_tbase_v32000", "bwd", 210, b2t["dlogits"])):
+        row = b2t_rows[("bf16", kind)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/fused_ce.cu",
+            "replaces": f"paddle_tpu/kernels/fused_ce.py:{replaces}",
+            "launches": TB_STEPS, "max_abs_err": err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     serving_summary({15: llama["serve15"], 16: llama["serve16"]}, card)
     print(f"  ERNIE-3.0-base Predictor.run latency, batch 1 x {ERNIE_S}: p50 "
           f"{ernie['p50']:.3f} ms, p99 {ernie['p99']:.3f} ms ({card})",
@@ -5213,6 +5898,8 @@ def main():
     print("  GPT-1.3B memory features: " + json.dumps(g13) + f" ({card})",
           flush=True)
     print("  training API: " + json.dumps(api) + f" ({card})", flush=True)
+    print("  Transformer-base: " + json.dumps(tbase) + f" ({card})",
+          flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -6,9 +6,10 @@ name. The port imports ``torch``, ``numpy`` and the standard library
 only — never ``jax`` and nothing under ``paddle_tpu``.
 
 Every entry point runs on the CUDA card unless the caller passes
-``device="cpu"``; with no card and no explicit CPU request it raises
-(``device.resolve_device``). Kernels that ``paddle_tpu`` wrote in Pallas
-for the TPU are hand-written CUDA C++ for ``sm_90a`` here
+``device="cpu"`` or calls ``set_device("cpu")``, and every ``nn.Layer``
+builds its parameters there; with no card and no explicit CPU request
+it raises (``device.resolve_device``). Kernels that ``paddle_tpu``
+wrote in Pallas for the TPU are hand-written CUDA C++ for ``sm_90a`` here
 (``kernels/csrc``), built by ``nvcc`` at first use; on CPU tensors each
 kernel wrapper runs its plain PyTorch version instead.
 
@@ -30,8 +31,10 @@ warmup and the ``Config.enable_continuous_batching`` predictor — with
 the observability package (``obs``: metrics registry, spans, flight
 recorder) and the fault-injection half of ``distributed.resilience``.
 """
-from .device import resolve_device
+from .device import get_device, resolve_device, set_device
 from .framework.random import seed
-from . import inference, obs  # noqa: E402  (paddle_tpu.inference parity)
+from .io import load, save
+from . import inference, nn, obs  # noqa: E402  (paddle_tpu parity)
 
-__all__ = ["resolve_device", "seed", "inference", "obs"]
+__all__ = ["resolve_device", "set_device", "get_device", "seed", "save",
+           "load", "inference", "nn", "obs"]

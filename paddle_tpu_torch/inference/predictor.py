@@ -92,6 +92,11 @@ class Config:
         self._device = "gpu"
         self._device_id = device_id
 
+    def enable_tpu(self, device_id: int = 0):
+        """paddle_tpu's accelerator switch: here the card
+        ``cuda:device_id``, as ``enable_use_gpu``."""
+        self.enable_use_gpu(device_id=device_id)
+
     def disable_gpu(self):
         """Run on the CPU: the explicit CPU request."""
         self._device = "cpu"

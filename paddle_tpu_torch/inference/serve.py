@@ -168,7 +168,8 @@ def handle_admin_trace(handler, drain_body_fn):
         send_json(handler, 400, {"error": "bad duration_s"})
         return
     profile = q.get("profile", ["0"])[0] not in ("0", "", "false")
-    doc = _obs.trace.capture(min(max(duration, 0.0), 60.0), profile=profile)
+    doc = _obs.trace.capture(min(max(duration, 0.0), 60.0),
+                                jax_profile=profile)
     send_json(handler, 200, doc)
 
 

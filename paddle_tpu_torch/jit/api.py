@@ -34,28 +34,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..framework.dtype import convert_dtype, dtype_name
 
 __all__ = ["InputSpec", "save", "load", "TranslatedLayer"]
-
-_DTYPES = {"float32": torch.float32, "float64": torch.float64,
-           "float16": torch.float16, "bfloat16": torch.bfloat16,
-           "int64": torch.int64, "int32": torch.int32, "int16": torch.int16,
-           "int8": torch.int8, "uint8": torch.uint8, "bool": torch.bool}
-
-
-def convert_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a paddle/numpy dtype name or a torch dtype."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    name = str(dtype).removeprefix("paddle.").removeprefix("torch.")
-    if name not in _DTYPES:
-        raise ValueError(f"unsupported dtype {dtype!r}")
-    return _DTYPES[name]
-
-
-def dtype_name(dtype: torch.dtype) -> str:
-    return str(dtype).removeprefix("torch.")
-
 
 class InputSpec:
     """paddle.static.InputSpec: the declared shape and dtype of an input;

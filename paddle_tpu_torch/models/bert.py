@@ -32,7 +32,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..nn import Dropout, Embedding, LayerNorm, Linear, Tanh
+from ..nn import Dropout, Embedding, Layer, LayerNorm, Linear, Tanh
 from ..nn import functional as F
 from .scanned import ScannedStack, stacked_init_kinds
 
@@ -109,7 +109,7 @@ def _materialize(model: nn.Module, cfg: BertConfig, device, seed: int):
     model.eval()
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size)
@@ -135,7 +135,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(x))
 
 
-class BertSelfAttention(nn.Module):
+class BertSelfAttention(Layer):
     """Bidirectional self-attention with an optional padding mask."""
 
     def __init__(self, cfg: BertConfig):
@@ -165,7 +165,7 @@ class BertSelfAttention(nn.Module):
         return self.dropout(self.out_proj(ctx.reshape(B, S, H)))
 
 
-class BertLayer(nn.Module):
+class BertLayer(Layer):
     """Post-LN transformer encoder block (original BERT arrangement)."""
 
     def __init__(self, cfg: BertConfig):
@@ -185,7 +185,7 @@ class BertLayer(nn.Module):
         return self.ln_2(x + y)
 
 
-class BertPooler(nn.Module):
+class BertPooler(Layer):
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.dense = Linear(cfg.hidden_size, cfg.hidden_size)
@@ -195,7 +195,7 @@ class BertPooler(nn.Module):
         return self.activation(self.dense(x[:, 0]))       # [CLS] token
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     """Encoder stack + pooler. Returns (sequence_output, pooled_output).
 
     ``device``: the card when omitted (raises without one); pass
@@ -247,7 +247,7 @@ class ErnieModel(BertModel):
     """ERNIE-3.0-class encoder — same architecture, relu-FFN configs."""
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(Layer):
     """Fine-tune head (``BASELINE.json`` config 2: ERNIE-3.0/BERT-base
     fine-tune). ``device`` and ``seed`` as ``BertModel``'s, one generator
     drawing the encoder's weights and then the classifier's."""
@@ -276,7 +276,7 @@ class BertForSequenceClassification(nn.Module):
         return F.cross_entropy(logits, labels).mean()
 
 
-class BertForMaskedLM(nn.Module):
+class BertForMaskedLM(Layer):
     """MLM head; the decoder is tied to the input word embedding (a plain
     matmul, XLA code in paddle_tpu) with an untied output bias."""
 

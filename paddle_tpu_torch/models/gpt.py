@@ -34,7 +34,7 @@ from ..device import resolve_device
 from ..distributed.mesh import mesh_axis_size
 from ..distributed.recompute import recompute
 from ..distributed.sequence_parallel import ring_attention
-from ..nn import Dropout, Embedding, LayerNorm, Linear
+from ..nn import Dropout, Embedding, Layer, LayerNorm, Linear
 from ..nn import functional as F
 from .generation import new_kv_caches, new_paged_kv_caches
 from .scanned import ScannedStack, stacked_init_kinds
@@ -87,7 +87,7 @@ def _check_supported(cfg: GPTConfig):
             "GPTConfig.use_moe is not ported yet — see ROADMAP.md")
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         h, nh = cfg.hidden_size, cfg.num_heads
@@ -121,7 +121,7 @@ class GPTAttention(nn.Module):
         return self.dropout(self.out_proj(ctx.reshape(B, S, H)))
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         h = cfg.hidden_size
@@ -133,7 +133,7 @@ class GPTMLP(nn.Module):
         return self.dropout(self.fc_out(F.gelu(self.fc_in(x))))
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     """Pre-LN transformer block."""
 
     def __init__(self, cfg: GPTConfig):
@@ -163,7 +163,7 @@ class GPTScannedBlocks(ScannedStack):
                          recompute_policy=cfg.recompute_policy)
 
 
-class GPTEmbeddings(nn.Module):
+class GPTEmbeddings(Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         self.word_embeddings = Embedding(cfg.vocab_size, cfg.hidden_size)
@@ -189,7 +189,7 @@ class GPTEmbeddings(nn.Module):
         return self.dropout(x)
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     """Decoder stack without head."""
 
     def __init__(self, cfg: GPTConfig):
@@ -230,7 +230,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """GPT with the LM head tied to the word embedding (or an untied
     ``lm_head`` when ``cfg.tie_embeddings`` is False).
 

@@ -35,7 +35,7 @@ from ..device import resolve_device
 from ..distributed.mesh import mesh_axis_size
 from ..distributed.recompute import recompute
 from ..distributed.sequence_parallel import ring_attention
-from ..nn import Embedding, Linear, RMSNorm
+from ..nn import Embedding, Layer, Linear, RMSNorm
 from ..nn import functional as F
 from .generation import new_kv_caches, new_paged_kv_caches
 from .gpt import GPTForCausalLM
@@ -115,7 +115,7 @@ def _rope(q, k, theta: float, offset=None):
     return rot(q), rot(k)
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     """Causal self-attention with RoPE and GQA."""
 
     def __init__(self, cfg: LlamaConfig):
@@ -157,7 +157,7 @@ class LlamaAttention(nn.Module):
         return self.o_proj(ctx.reshape(B, S, nh * hd))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     """SwiGLU: ``down(silu(gate(x)) * up(x))``."""
 
     def __init__(self, cfg: LlamaConfig):
@@ -171,7 +171,7 @@ class LlamaMLP(nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-class LlamaBlock(nn.Module):
+class LlamaBlock(Layer):
     """Pre-RMSNorm block."""
 
     def __init__(self, cfg: LlamaConfig):
@@ -201,7 +201,7 @@ class LlamaScannedBlocks(ScannedStack):
                          recompute_policy=cfg.recompute_policy)
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     """Decoder stack without head."""
 
     def __init__(self, cfg: LlamaConfig):
@@ -244,7 +244,7 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """Llama with an untied LM head.
 
     ``device``: the card when omitted (raises without one); pass

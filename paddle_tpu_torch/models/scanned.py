@@ -41,6 +41,7 @@ from torch.func import functional_call
 
 from ..distributed.recompute import _checkpoint, resolve_checkpoint_policy
 from ..nn.layer.common import _draw
+from ..nn.layer_base import Layer
 
 __all__ = ["ScannedStack", "stacked_init_kinds"]
 
@@ -57,7 +58,7 @@ def _layer_view(cache, i):
     return cache[i]
 
 
-class ScannedStack(nn.Module):
+class ScannedStack(Layer):
     """``num_layers`` copies of ``block_factory()`` as stacked-leaf
     parameters (see the module docstring). Blocks with buffers are
     rejected, as paddle_tpu rejects them; stochastic blocks (dropout > 0)

@@ -46,15 +46,17 @@ import math
 
 import torch
 
+from ...device import resolve_device
+from ...framework.dtype import convert_dtype
 from ...kernels.cache_write import kv_paged_write, kv_slot_write
 from ...kernels.cache_write import quant_rows as _quant_rows
 from ...framework.random import keep_mask
 from ...kernels.flash_attention import flash_attn
 from ...kernels.mega_decode import mega_decode_step
 
-__all__ = ["flash_attention", "scaled_dot_product_attention",
-           "causal_attention", "quantized_kv_cache", "paged_kv_cache",
-           "cached_attention"]
+__all__ = ["flash_attention", "flash_attn_unpadded",
+           "scaled_dot_product_attention", "sdp_kernel", "causal_attention",
+           "quantized_kv_cache", "paged_kv_cache", "cached_attention"]
 
 _NEG_INF = -1e30
 
@@ -87,6 +89,44 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
         return _dropout_attention(query, key, value, None, causal, scale,
                                   drop), None
     return _flash(query, key, value, causal, scale), None
+
+
+def _segments(cu, total, device):
+    """(segment id, position within the segment) of each of ``total``
+    packed rows, from the cumulative lengths ``cu`` ``[n + 1]``."""
+    cu = torch.as_tensor(cu, device=device).to(torch.int64)
+    starts = cu[1:-1]
+    starts = starts[starts < total]
+    seg = torch.zeros(total, dtype=torch.int64, device=device)
+    seg.index_add_(0, starts, torch.ones_like(starts))
+    seg = seg.cumsum(0)
+    return seg, torch.arange(total, device=device) - cu[seg]
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False, name=None):
+    """Varlen attention over packed rows: q ``[total_q, H, D]`` and k / v
+    ``[total_k, H, D]`` hold sequence i at rows ``cu_seqlens_*[i] :
+    cu_seqlens_*[i + 1]``; a query sees the keys of its own sequence
+    (``causal``: those at or before its position within it), logits
+    ``q k^T * scale`` filled with -1e30 elsewhere, softmax over the keys.
+    Returns ``(out [total_q, H, D], None)``. paddle_tpu computes it as
+    segment-mask attention in XLA, with no kernel, and so does the port,
+    in plain tensor code, all in f32 (paddle_tpu at the inputs' dtype),
+    the result cast to q's dtype. ``max_seqlen_*``, ``dropout``, ``return_softmax`` and
+    ``name`` are accepted and ignored, as paddle_tpu ignores them."""
+    seg_q, pos_q = _segments(cu_seqlens_q, query.shape[0], query.device)
+    seg_k, pos_k = _segments(cu_seqlens_k, key.shape[0], query.device)
+    logits = torch.einsum("qhd,khd->hqk", query.float(),
+                          key.float()) * scale
+    mask = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        mask = mask & (pos_q[:, None] >= pos_k[None, :])
+    logits = torch.where(mask[None], logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("hqk,khd->qhd", probs, value.float())
+    return out.to(query.dtype), None
 
 
 def _masked_logits(q, k, attn_mask, causal, scale, causal_offset):
@@ -151,35 +191,55 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     return _masked_attention(query, key, value, attn_mask, is_causal, scale)
 
 
+class sdp_kernel:
+    """paddle's kernel-selection context manager: accepted and a no-op,
+    as in paddle_tpu (``scaled_dot_product_attention`` picks B1 or the
+    plain branch from its arguments)."""
+
+    def __init__(self, **kwargs):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+
 def causal_attention(q, k, v):
     """Causal ``softmax(q k^T / sqrt(d)) v`` on ``[B, S, H, D]``: the
     no-cache forward, on the B1 kernels."""
     return flash_attention(q, k, v, causal=True)[0]
 
 
-def quantized_kv_cache(batch, max_len, kv_heads, head_dim, device):
+def quantized_kv_cache(batch, max_len, kv_heads, head_dim, device=None):
     """An int8 KV-cache half: int8 values with one f32 scale per
-    (batch, position, head) row."""
+    (batch, position, head) row, on ``device`` (the card when omitted;
+    raises without one)."""
+    dev = resolve_device(device)
     return {"data": torch.zeros((batch, max_len, kv_heads, head_dim),
-                                dtype=torch.int8, device=device),
+                                dtype=torch.int8, device=dev),
             "scale": torch.zeros((batch, max_len, kv_heads),
-                                 dtype=torch.float32, device=device)}
+                                 dtype=torch.float32, device=dev)}
 
 
-def paged_kv_cache(num_pages, page_size, kv_heads, head_dim, dtype,
-                   device):
+def paged_kv_cache(num_pages, page_size, kv_heads, head_dim,
+                   dtype="bfloat16", device=None):
     """One paged KV-cache half: the page pool only (block tables are
-    per-request engine state, attached per call). ``dtype`` "int8" gives
-    int8 pages with an f32 scale per (page, offset, head); else a torch
-    float dtype. Zero-filled: unallocated table entries read page 0, and
-    the causal mask turns its finite contents into exact zeros, which it
-    could not do for NaN from uninitialised memory."""
+    per-request engine state, attached per call), on ``device`` (the card
+    when omitted; raises without one). ``dtype`` "int8" gives int8 pages
+    with an f32 scale per (page, offset, head); else a float dtype, by
+    name or as a torch dtype. Zero-filled: unallocated table entries read
+    page 0, and the causal mask turns its finite contents into exact
+    zeros, which it could not do for NaN from uninitialised memory."""
+    dev = resolve_device(device)
     shape = (num_pages, page_size, kv_heads, head_dim)
-    if dtype == "int8":
-        return {"pages": torch.zeros(shape, dtype=torch.int8, device=device),
+    if dtype == "int8" or dtype == torch.int8:
+        return {"pages": torch.zeros(shape, dtype=torch.int8, device=dev),
                 "scale": torch.zeros(shape[:3], dtype=torch.float32,
-                                     device=device)}
-    return {"pages": torch.zeros(shape, dtype=dtype, device=device)}
+                                     device=dev)}
+    return {"pages": torch.zeros(shape, dtype=convert_dtype(dtype),
+                                 device=dev)}
 
 
 def _is_paged(cache) -> bool:

@@ -5,54 +5,24 @@ paddle's layouts: a Linear weight is ``[in, out]`` and applies as ``x @ W
 (``convert.load_paddle_tpu_params``).
 
 A layer built on its own draws paddle_tpu's default initialisers at
-construction: a Linear weight Xavier normal, its bias zeros, an Embedding
-weight N(0, 1), from ``framework.random``'s generator of the device the
-parameter is built on (constant fills, ones and zeros, always run). The
-models draw their own weights, so they build their layers inside
-``_no_default_init()`` or on the meta device, where nothing is drawn: no
-weight is drawn twice.
+construction (``Layer.create_parameter``, on the card unless the caller
+asks otherwise): a Linear weight Xavier normal, its bias zeros, an
+Embedding weight N(0, 1), from ``framework.random``'s generator of the
+device the parameter is built on; ``weight_attr`` / ``bias_attr`` take a
+ParamAttr, an initializer, a name or False, as in paddle_tpu. The models
+draw their own weights, so they build their layers on the meta device,
+where nothing is drawn: no weight is drawn twice.
 """
 from __future__ import annotations
 
-import contextlib
-import math
-import threading
-
 import torch
-from torch import nn
 
 from ...framework import random as _random
 from .. import functional as F
+from .. import initializer as I
+from ..layer_base import Layer, _skip_random_init
 
 __all__ = ["Linear", "Embedding", "Dropout"]
-
-_state = threading.local()
-
-
-@contextlib.contextmanager
-def _no_default_init():
-    """Build layers without their default draws (the models draw their
-    weights themselves, once)."""
-    prev = getattr(_state, "skip", False)
-    _state.skip = True
-    try:
-        yield
-    finally:
-        _state.skip = prev
-
-
-def _param(shape, attr, what):
-    """A parameter of ``shape`` (uninitialised), or None where ``attr`` is
-    False. paddle_tpu's ParamAttr forms: None / True -> a parameter, a
-    string -> its name (the port names parameters by attribute), False ->
-    none; a ParamAttr or an initializer object is not ported."""
-    if attr is False:
-        return None
-    if attr is not None and attr is not True and not isinstance(attr, str):
-        raise NotImplementedError(
-            f"{what}={attr!r}: ParamAttr and initializer objects are not "
-            "ported yet — see ROADMAP.md")
-    return nn.Parameter(torch.empty(*shape))
 
 
 def _draw(p, fill, random=True):
@@ -61,14 +31,14 @@ def _draw(p, fill, random=True):
     off. Constant fills (ones, zeros) always run."""
     if p is None or p.is_meta:
         return
-    if random and getattr(_state, "skip", False):
+    if random and _skip_random_init():
         return
     with torch.no_grad():
         fill(p, _random.default_generator().get(p.device) if random
              else None)
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """Paddle-layout linear: weight ``[in, out]``, ``y = x @ W + b``;
     ``bias_attr=False`` drops the bias."""
 
@@ -76,12 +46,11 @@ class Linear(nn.Module):
                  bias_attr=None, name=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
-        self.weight = _param((in_features, out_features), weight_attr,
-                             "weight_attr")
-        self.bias = _param((out_features,), bias_attr, "bias_attr")
-        std = math.sqrt(2.0 / (in_features + out_features))
-        _draw(self.weight, lambda p, g: p.normal_(0.0, std, generator=g))
-        _draw(self.bias, lambda p, g: p.zero_(), random=False)
+        self.weight = self.create_parameter(
+            [in_features, out_features], attr=weight_attr,
+            default_initializer=I.XavierNormal())
+        self.bias = self.create_parameter([out_features], attr=bias_attr,
+                                          is_bias=True)
 
     def forward(self, x):
         y = x @ self.weight
@@ -92,7 +61,7 @@ class Linear(nn.Module):
                 f"out_features={self.out_features}")
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """Rows of ``weight`` ``[num_embeddings, embedding_dim]`` by index.
     With ``padding_idx`` that row starts at zero and, as in paddle_tpu,
     the lookup of that index gives zeros, so the row gets no gradient.
@@ -103,14 +72,11 @@ class Embedding(nn.Module):
         super().__init__()
         self.embedding_dim = embedding_dim
         self.padding_idx = padding_idx
-        self.weight = _param((num_embeddings, embedding_dim), weight_attr,
-                             "weight_attr")
-
-        def fill(p, g):
-            p.normal_(0.0, 1.0, generator=g)
-            if padding_idx is not None:
-                p[padding_idx] = 0.0
-        _draw(self.weight, fill)
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], attr=weight_attr,
+            default_initializer=I.Normal(0.0, 1.0))
+        if padding_idx is not None:
+            _draw(self.weight, lambda p, g: p[padding_idx].zero_())
 
     @property
     def num_embeddings(self) -> int:
@@ -128,7 +94,7 @@ class Embedding(nn.Module):
         return f"{self.num_embeddings}, {self.embedding_dim}"
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """``F.dropout`` in training mode, the identity in eval mode."""
 
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):

@@ -1,16 +1,14 @@
 """LayerNorm and RMSNorm (port of paddle_tpu/nn/layer/norm.py)."""
 from __future__ import annotations
 
-import torch
-from torch import nn
-
 from .. import functional as F
-from .common import _draw, _param
+from .. import initializer as I
+from ..layer_base import Layer
 
 __all__ = ["LayerNorm", "RMSNorm"]
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """LayerNorm over the trailing ``normalized_shape`` axes: ``weight``
     ones, ``bias`` zeros; ``weight_attr=False`` / ``bias_attr=False``
     drop them."""
@@ -22,11 +20,11 @@ class LayerNorm(nn.Module):
             normalized_shape = [normalized_shape]
         self.normalized_shape = list(normalized_shape)
         self.epsilon = epsilon
-        self.weight = _param(self.normalized_shape, weight_attr,
-                             "weight_attr")
-        self.bias = _param(self.normalized_shape, bias_attr, "bias_attr")
-        _draw(self.weight, lambda p, g: p.fill_(1.0), random=False)
-        _draw(self.bias, lambda p, g: p.zero_(), random=False)
+        self.weight = self.create_parameter(
+            self.normalized_shape, attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter(self.normalized_shape,
+                                          attr=bias_attr, is_bias=True)
 
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
@@ -36,7 +34,7 @@ class LayerNorm(nn.Module):
         return f"normalized_shape={self.normalized_shape}"
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """paddle_tpu's ``nn.RMSNorm`` (Llama's norm): ``weight`` initialised
     to ones (``weight_attr=False``: none), no bias."""
 
@@ -44,8 +42,9 @@ class RMSNorm(nn.Module):
                  name=None):
         super().__init__()
         self.epsilon = epsilon
-        self.weight = _param((hidden_size,), weight_attr, "weight_attr")
-        _draw(self.weight, lambda p, g: p.fill_(1.0), random=False)
+        self.weight = self.create_parameter(
+            [hidden_size], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self.epsilon)

@@ -328,11 +328,12 @@ def _torch_profile(window):
     return prof_dir
 
 
-def capture(duration_s: float = 0.0, profile: bool = False) -> dict:
+def capture(duration_s: float = 0.0, jax_profile: bool = False) -> dict:
     """The ``POST /admin/trace?duration_s=`` body: record for
     ``duration_s`` (0 -> snapshot the whole ring now) and return the
-    Chrome-trace dict. ``profile=True`` also runs ``torch.profiler`` over
-    the window (paddle_tpu runs ``jax.profiler`` here); its directory,
+    Chrome-trace dict. ``jax_profile=True`` (paddle_tpu's name for its
+    device-profiler flag, where it runs ``jax.profiler``) runs
+    ``torch.profiler`` over the window; its directory,
     holding ``trace.json``, rides in ``metadata["torch_profile_dir"]``.
     A profiler that cannot run degrades to the host-span capture with
     its error in ``metadata["torch_profile_error"]`` — a trace endpoint
@@ -343,7 +344,7 @@ def capture(duration_s: float = 0.0, profile: bool = False) -> dict:
     def window():
         if since is not None:
             time.sleep(float(duration_s))
-    if profile:
+    if jax_profile:
         try:
             meta["torch_profile_dir"] = _torch_profile(window)
         except Exception as e:   # noqa: BLE001 — degrade, don't 500

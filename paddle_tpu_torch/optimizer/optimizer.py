@@ -401,7 +401,8 @@ class Adam(Optimizer):
     """paddle's ``Adam``; ``weight_decay`` (a float, ``L2Decay`` or
     ``L1Decay``) is coupled. Epsilon sits outside the bias correction,
     which is why ``torch.optim.Adam``, whose epsilon sits inside it, is
-    not used:
+    not used. Further keywords (paddle's ``use_multi_tensor``, ...) are
+    accepted and ignored, as paddle_tpu ignores them:
 
         m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
         lr_t = lr sqrt(1 - b2^t) / (1 - b1^t);  p -= lr_t m / (sqrt(v) + eps)
@@ -410,7 +411,7 @@ class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
-                 name=None):
+                 name=None, **kw):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision, name)
         self._beta1 = float(beta1)
@@ -447,7 +448,7 @@ class AdamW(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
-                 lazy_mode=False, multi_precision=False, name=None):
+                 lazy_mode=False, multi_precision=False, name=None, **kw):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip, lazy_mode, multi_precision,
                          name)

@@ -37,6 +37,9 @@ from paddle_tpu.inference import engine as jengine
 from paddle_tpu.nn import functional as jF
 from paddle_tpu.nn.functional import activation as jact
 from paddle_tpu.nn.functional import common as jcommon
+from paddle_tpu.nn import utils as jutils
+from paddle_tpu import optimizer as joptim
+import paddle_tpu as jpkg
 from paddle_tpu_torch import jit as tjit
 from paddle_tpu_torch.inference import predictor as tpred
 from paddle_tpu_torch import distributed as tdist
@@ -57,6 +60,9 @@ from paddle_tpu_torch.inference import engine as tengine
 from paddle_tpu_torch.nn import functional as tF
 from paddle_tpu_torch.nn.functional import activation as tact
 from paddle_tpu_torch.nn.functional import common as tcommon
+from paddle_tpu_torch.nn import utils as tutils
+from paddle_tpu_torch import optimizer as toptim
+import paddle_tpu_torch as tpkg
 
 # both packages re-export a flash_attention function under the module's name
 jfa = importlib.import_module("paddle_tpu.nn.functional.flash_attention")
@@ -126,17 +132,60 @@ _NAMES = [(tF, jF, n) for n in ("layer_norm", "cross_entropy")] + [
     (tF, jF, "fused_linear_cross_entropy"),
     (tgpt, jgpt, "GPTForCausalLM.fused_loss_fn"),
     (tllama, jllama, "LlamaForCausalLM.fused_loss_fn"),
-    (tgen, jgen, "new_kv_caches"), (tgen, jgen, "new_paged_kv_caches")]
+    (tgen, jgen, "new_kv_caches"), (tgen, jgen, "new_paged_kv_caches")] + [
+    # C10's five reference calls
+    (tfa, jfa, "paged_kv_cache"), (tfa, jfa, "quantized_kv_cache"),
+    (toptim, joptim, "Adam.__init__"), (toptim, joptim, "AdamW.__init__"),
+    (tpred, jpred, "Config.enable_tpu"), (tobs, jobs, "trace.capture")] + [
+    # the Layer system: Layer's methods, ParamAttr, the initializers
+    (tnn, jnn, f"Layer.{n}") for n in (
+        "__init__", "create_parameter", "add_parameter", "add_sublayer",
+        "register_buffer", "sublayers", "named_sublayers", "parameters",
+        "named_parameters", "astype", "to", "float", "bfloat16", "half",
+        "state_dict", "set_state_dict", "set_dict", "load_dict",
+        "register_forward_pre_hook", "register_forward_post_hook",
+        "full_name", "clear_gradients", "extra_repr")] + [
+    (tnn, jnn, "ParamAttr.__init__")] + [
+    (tnn, jnn, f"initializer.{n}") for n in (
+        "Constant.__init__", "Normal.__init__", "TruncatedNormal.__init__",
+        "Uniform.__init__", "XavierNormal.__init__",
+        "XavierUniform.__init__", "KaimingNormal.__init__",
+        "KaimingUniform.__init__", "Assign.__init__", "Orthogonal.__init__",
+        "Dirac.__init__", "Bilinear.__init__", "Initializer.__call__",
+        "calculate_gain", "set_global_initializer")] + [
+    # the containers and the transformer layers
+    (tnn, jnn, n) for n in (
+        "Sequential.__init__", "Sequential.forward", "LayerList.__init__",
+        "LayerList.append", "LayerList.insert", "LayerList.extend",
+        "ParameterList.__init__", "ParameterList.append",
+        "LayerDict.__init__", "LayerDict.update", "LayerDict.pop",
+        "MultiHeadAttention.__init__", "MultiHeadAttention.forward",
+        "MultiHeadAttention.gen_cache", "TransformerEncoderLayer.__init__",
+        "TransformerEncoderLayer.forward",
+        "TransformerEncoderLayer.gen_cache", "TransformerEncoder.__init__",
+        "TransformerEncoder.forward", "TransformerEncoder.gen_cache",
+        "TransformerDecoderLayer.__init__", "TransformerDecoderLayer.forward",
+        "TransformerDecoderLayer.gen_cache", "TransformerDecoder.__init__",
+        "TransformerDecoder.forward", "TransformerDecoder.gen_cache",
+        "Transformer.__init__", "Transformer.forward",
+        "Transformer.generate_square_subsequent_mask")] + [
+    # the activation layers and functionals
+    (tnn, jnn, f"{n}.__init__") for n in jnn.layer.activation.__all__] + [
+    (tact, jact, n) for n in jact.__all__] + [
+    (tutils, jutils, n) for n in jutils.__all__] + [
+    (tfa, jfa, "flash_attn_unpadded"), (tfa, jfa, "sdp_kernel.__init__"),
+    (tpkg, jpkg, "save"), (tpkg, jpkg, "load"),
+    (tpkg, jpkg, "set_device"), (tpkg, jpkg, "get_device")]
 
 
 def test_capture_takes_a_torch_profile_flag():
-    """``capture``'s profiler flag names the port's profiler:
-    ``profile`` where paddle_tpu's is ``jax_profile``, in the same
-    place."""
+    """``capture`` takes paddle_tpu's names: its device-profiler flag is
+    ``jax_profile`` in both, in the same place (the port runs
+    ``torch.profiler`` under it)."""
     got = list(inspect.signature(tobs.trace.capture).parameters)
     want = list(inspect.signature(jobs.trace.capture).parameters)
     assert want == ["duration_s", "jax_profile"]
-    assert got == ["duration_s", "profile"]
+    assert got == want
 
 
 def _fields(cls):
@@ -171,7 +220,60 @@ def test_signature_matches_reference(port, ref):
     want = list(inspect.signature(ref).parameters)
     if got[-1:] == ["device"] and want[-1:] != ["device"]:
         got = got[:-1]
+    got = [n for n in got if n not in _module_keywords(port)]
     assert got == want
+
+
+def _module_keywords(port):
+    """The keyword-only parameters that a ``Layer`` method takes beyond
+    paddle's, named as ``torch.nn.Module``'s method of the same name names
+    them (torch's own callers pass them: ``functional_call`` passes
+    ``named_parameters(remove_duplicate=False)``). After paddle's
+    parameters and keyword-only, they change no binding of a paddle call.
+    Empty for anything but a ``Layer`` method."""
+    name = getattr(port, "__name__", "")
+    if getattr(tnn.Layer, name, None) is not port or \
+            not hasattr(torch.nn.Module, name):
+        return set()
+    module = set(inspect.signature(getattr(torch.nn.Module, name)).parameters)
+    return {n for n, p in inspect.signature(port).parameters.items()
+            if p.kind is p.KEYWORD_ONLY and n in module}
+
+
+def test_c10_reference_calls_run_in_the_port():
+    """The five calls that raised in the port, each with paddle_tpu's own
+    arguments: the cache constructors take the reference's dtype strings
+    and resolve their device as every entry point does (the card when
+    omitted: on a machine without one they raise naming CUDA); Adam and
+    AdamW ignore paddle's extra keywords; ``Config.enable_tpu`` selects
+    the card; ``capture`` takes ``jax_profile``."""
+    for call in (lambda **kw: tfa.paged_kv_cache(4, 8, 2, 16,
+                                                 dtype="bfloat16", **kw),
+                 lambda **kw: tfa.quantized_kv_cache(2, 8, 2, 16, **kw)):
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
+        assert call(device="cpu")
+    pool = tfa.paged_kv_cache(4, 8, 2, 16, device="cpu")
+    assert pool["pages"].dtype == torch.bfloat16
+    assert tuple(pool["pages"].shape) == (4, 8, 2, 16)
+    assert tfa.paged_kv_cache(4, 8, 2, 16, "float32", device="cpu")[
+        "pages"].dtype == torch.float32
+    i8 = tfa.paged_kv_cache(4, 8, 2, 16, "int8", device="cpu")
+    assert i8["pages"].dtype == torch.int8 and i8["scale"].shape == (4, 8, 2)
+    q8 = tfa.quantized_kv_cache(2, 8, 2, 16, device="cpu")
+    assert q8["data"].dtype == torch.int8 and q8["scale"].shape == (2, 8, 2)
+    params = [torch.nn.Parameter(torch.ones(3))]
+    for cls in (toptim.Adam, toptim.AdamW):
+        opt = cls(learning_rate=0.1, parameters=params,
+                  use_multi_tensor=True)
+        params[0].grad = torch.ones(3)
+        opt.step()
+    cfg = tpred.Config()
+    cfg.enable_tpu(device_id=0)
+    assert cfg.use_gpu() and cfg._device_id == 0
+    doc = tobs.trace.capture(0.0, jax_profile=False)
+    assert "torch_profile_dir" not in doc["metadata"]
 
 
 def _qkv():

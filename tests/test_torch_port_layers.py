@@ -20,11 +20,20 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu import nn as jnn
 from paddle_tpu.nn import functional as jF
-from paddle_tpu_torch import nn, seed
+from paddle_tpu_torch import device as tdev, nn, seed
 from paddle_tpu_torch.framework import random as trandom
 from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
                                      gpt_tiny, llama_tiny)
 from paddle_tpu_torch.nn import functional as F
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """Layers build on the card by default; these tests build them on the
+    CPU, as paddle's ``set_device("cpu")`` asks."""
+    tdev.set_device("cpu")
+    yield
+    tdev.set_device(None)
 
 
 def _np(t):
@@ -69,8 +78,10 @@ def test_linear_bias_attr_binds_as_reference():
     assert nn.Linear(4, 8, bias_attr=False).bias is None
     assert jnn.Linear(4, 8, bias_attr=False).bias is None
     assert nn.Linear(4, 8, weight_attr="w", bias_attr="b").bias is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nn.Linear(4, 8, weight_attr=jnn.initializer.Constant(1.0))
+    # an initializer object (or a ParamAttr holding one) sets the weight
+    ones = nn.Linear(4, 8, weight_attr=nn.initializer.Constant(1.0))
+    jones = jnn.Linear(4, 8, weight_attr=jnn.initializer.Constant(1.0))
+    np.testing.assert_array_equal(_np(ones.weight), _np(jones.weight))
     jl = jnn.Linear(4, 8)
     tl = nn.Linear(4, 8)
     with torch.no_grad():

@@ -33,7 +33,7 @@ from paddle_tpu.models import bert as jbert
 from paddle_tpu.models import gpt_tiny as jax_gpt_tiny
 from paddle_tpu.models import llama_tiny as jax_llama_tiny
 from paddle_tpu.nn import functional as jF
-from paddle_tpu_torch import seed as tseed
+from paddle_tpu_torch import seed as tseed, set_device
 from paddle_tpu_torch.convert import load_paddle_tpu_params
 from paddle_tpu_torch import distributed as tdist
 from paddle_tpu_torch.distributed.recompute import resolve_checkpoint_policy
@@ -247,6 +247,17 @@ def test_recompute_replays_dropout_masks():
     assert _port_loss_and_grads(tm, _ids(5))[0] != l0
 
 
+@pytest.fixture
+def on_cpu():
+    """Layers build on the card by default; a test that builds them
+    itself builds them on the CPU, as paddle's ``set_device("cpu")``
+    asks."""
+    set_device("cpu")
+    yield
+    set_device(None)
+
+
+@pytest.mark.usefixtures("on_cpu")
 def test_recompute_api():
     """``recompute(layer, x)`` equals ``layer(x)`` with the same grads;
     ``use_reentrant`` / ``preserve_rng_state`` are accepted; a plain

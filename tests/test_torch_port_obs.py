@@ -208,7 +208,7 @@ def test_flight_dump_export_and_capture(tmp_path, monkeypatch):
     assert "ut-open" in doc["metadata"]["request_ids_in_flight"]
     assert doc["metadata"]["why"] == "test"
     t0 = time.perf_counter()
-    cap = obs.trace.capture(0.05, profile=True)
+    cap = obs.trace.capture(0.05, jax_profile=True)
     assert time.perf_counter() - t0 >= 0.05
     prof = cap["metadata"]["torch_profile_dir"]
     assert prof.startswith(str(tmp_path)) and "torch_profile_error" not in \
